@@ -5,12 +5,13 @@
 
 Phases, each fatal on failure (no result line is printed then):
 
-  1. build   — compile every CUDA kernel of the serving path from the
-               sources in this checkout (one nvcc per source, all at once);
+  1. build   — compile every CUDA kernel of the port from the sources in
+               this checkout (one nvcc per source, all at once) and print
+               each one's ptxas registers, shared memory and spills;
   2. kernels — hold each kernel against its plain PyTorch version on the
-               card with ``torch.equal`` (bit equality) at the shapes the
-               serving path gives it and on crafted edge cases, and time
-               both with CUDA events;
+               card: the IoU kernel with ``torch.equal`` (bit equality),
+               flash attention and the SSD scan within stated float32
+               tolerances, on crafted edge cases and ragged shapes;
   3. serve   — Armol's federation service at real size: 5000 trace images
                (the COCO val2017 size the traces model), the N=3 roster of
                Tab. II, a full-width SAC actor (hidden 256x256), four
@@ -18,7 +19,18 @@ Phases, each fatal on failure (no result line is printed then):
                ``handle`` calls; then the N=10 roster of Tab. III over 1000
                images.  Launch counters are zeroed just before and read
                just after; every IoU table, actor proto and served ensemble
-               is checked against the same computation on the CPU.
+               is checked against the same computation on the CPU;
+  4. lm serve — Zamba2-2.7B at full width in float32 (2.4 B parameters,
+               random weights from a CUDA generator) through
+               ``ServeEngine.serve``: 8 greedy requests, the longest prompt
+               1024 tokens, 16 new tokens.  Launch counters are zeroed just
+               before and read just after (flash 9, SSD 54 per prefill);
+               each kernel is held against its plain version on the inputs
+               of its first call in that run, and timed there;
+  5. lm vs cpu — the full-width model cut to one super-block (6 Mamba
+               blocks + the shared block) on the card and on the CPU from
+               the same weights: logits within a stated tolerance, greedy
+               tokens equal wherever the top-2 margin exceeds it.
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -39,6 +51,19 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
 IOU_FLOPS_PER_PAIR = 20        # 4 max/min, 2 areas, inter, union, div
+
+# Tolerances of the LM kernels against their plain versions (float32 on
+# both sides, summed in another order):
+FLASH_ATOL = 2e-5    # online softmax over KV tiles vs one softmax per row;
+                     # the reference's own flash test holds f32 to 2e-5
+SSD_RTOL = 5e-5      # of max |plain|: the chunk cumsum and the products run
+                     # in another order over up to 256 steps, and
+                     # exp(a_cs) carries the cumsum's rounding
+LM_LOGIT_ATOL = 2e-4  # card vs CPU logits (|logits| up to ~4) after 7
+                      # full-width blocks: cuBLAS and the CPU's BLAS sum K
+                      # up to 10240 in other orders, and so do the kernels
+                      # (1.7e-5 measured on an H100)
+LM_ARCH = "zamba2-2.7b"
 
 
 def log(msg: str) -> None:
@@ -341,22 +366,461 @@ def kernel_device_ms(boxes_list, dev, launches: int = 200):
     batch, read from ``torch.profiler`` (None where it sees no device
     time)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.iou_matrix import ops
 
     x = padded_batch(boxes_list, dev)
     B, n = x.shape[0], x.shape[1]
     out = torch.empty((B, n, n), dtype=torch.float32, device=dev)
     lib, stream = ops._library(), torch.cuda.current_stream(dev).cuda_stream
+    return kernel_device_ms_of(
+        lambda: lib.iou_matrix_launch(x.data_ptr(), x.data_ptr(),
+                                      out.data_ptr(), B, n, n, stream),
+        "iou_matrix_kernel", launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def rand_qkv(rng, B, S, H, K, hd, dev):
+    import numpy as np
+    import torch
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return t(B, S, H, hd), t(B, S, K, hd), t(B, S, K, hd)
+
+
+def rand_ssd(rng, B, S, nh, hd, N, dev, init: bool):
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    return (t(rng.standard_normal((B, S, nh, hd))),
+            t(rng.random((B, S, nh)) * 0.5 + 0.05),
+            t(-(rng.random(nh) * 0.9 + 0.3)),
+            t(rng.standard_normal((B, S, N))),
+            t(rng.standard_normal((B, S, N))),
+            t(rng.standard_normal((B, nh, hd, N))) if init else None)
+
+
+def flash_err(q, k, v, causal: bool, window: int) -> float:
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_torch(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError("flash_attention gave non-finite values")
+    err = float((got - want).abs().max())
+    del got, want
+    return err
+
+
+def ssd_err(args, chunk: int):
+    """(max abs err of y, of the final state, and each relative to the
+    plain version's max)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    y, fin = ops.ssd_scan(*args[:5], chunk, initial_state=args[5])
+    wy, wf = ssd_chunked(*args[:5], chunk, initial_state=args[5])
+    torch.cuda.synchronize()
+    out = []
+    for got, want in ((y, wy), (fin, wf)):
+        if not torch.isfinite(got).all():
+            raise AssertionError("ssd_scan gave non-finite values")
+        err = float((got - want).abs().max())
+        out += [err, err / max(float(want.abs().max()), 1e-30)]
+    return out
+
+
+def check_lm_kernels(dev) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(0)
+    flash_max = 0.0
+    for S in (1, 7, 33, 130, 1000):
+        for causal, window in ((True, 0), (False, 0), (True, 8),
+                               (True, 64)):
+            for H, K, hd in ((4, 4, 80), (8, 2, 64)):
+                err = flash_err(*rand_qkv(rng, 2, S, H, K, hd, dev),
+                                causal, window)
+                log(f"[kernels] flash_attention S={S} H={H} K={K} hd={hd} "
+                    f"causal={causal} window={window}: max_abs_err={err:.3g}")
+                if not err <= FLASH_ATOL:
+                    raise AssertionError(f"flash_attention off by {err} "
+                                         f"(> {FLASH_ATOL})")
+                flash_max = max(flash_max, err)
+    ssd_max = [0.0, 0.0]
+    for Q in (8, 32, 256):
+        for NC in (1, 4):
+            for N in (16, 64, 128):
+                for init in (False, True):
+                    ey, ry, ef, rf = ssd_err(rand_ssd(
+                        rng, 2, Q * NC, 4, 64, N, dev, init), Q)
+                    log(f"[kernels] ssd_scan Q={Q} NC={NC} N={N} hd=64 "
+                        f"init={init}: y max_abs_err={ey:.3g} (rel {ry:.3g})"
+                        f", state max_abs_err={ef:.3g} (rel {rf:.3g})")
+                    if not (ry <= SSD_RTOL and rf <= SSD_RTOL):
+                        raise AssertionError(f"ssd_scan off by {ry}, {rf} "
+                                             f"of max (> {SSD_RTOL})")
+                    ssd_max = [max(ssd_max[0], ey), max(ssd_max[1], ry)]
+    return {"flash_max_abs_err": flash_max, "ssd_max_abs_err": ssd_max[0],
+            "ssd_max_rel_err": ssd_max[1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: Zamba2-2.7B served at full width
+# ---------------------------------------------------------------------------
+
+def lm_requests(cfg, n: int, longest: int, new_tokens: int, seed: int):
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, longest + 1, n)
+    lens[rng.integers(0, n)] = longest
+    return [Request(rng.integers(0, cfg.vocab_size, int(L), dtype=np.int32),
+                    max_new_tokens=new_tokens, rid=i)
+            for i, L in enumerate(lens)]
+
+
+class Capture:
+    """Wraps a kernel op so the inputs of its first call are kept (cloned);
+    every call still goes through the op, and so through the kernel."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.args = None
+        self.kwargs = None
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            if self.args is None:
+                self.args = tuple(a.clone() if hasattr(a, "clone") else a
+                                  for a in args)
+                self.kwargs = dict(kwargs)
+            return self.orig(*args, **kwargs)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def lm_serve(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, max_len=1040, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    log(f"[lm] {cfg.name} full width on the card: {n_params} parameters "
+        f"(param_count {cfg.param_count()}), built in {init_s:.2f}s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+    reqs = lm_requests(cfg, 8, 1024, 16, seed=0)
+    engine.serve(lm_requests(cfg, 8, 1024, 2, seed=1))   # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Capture(fa, "flash_attention") as cap_fa, \
+            Capture(sd, "ssd_scan") as cap_sd:
+        fa.reset_launches()
+        sd.reset_launches()
+        outs = engine.serve(reqs, seed=0)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fa.LAUNCHES, "ssd_scan": sd.LAUNCHES}
+    st = dict(engine.last_stats)
+    peak = torch.cuda.max_memory_allocated(dev)
+    B, S = st["batch"], st["prompt_len"]
+    decode_tps = st["decode_steps"] * B / st["decode_s"]
+    total_tps = B * st["new_tokens"] / (st["prefill_s"] + st["decode_s"])
+    log(f"[lm] served {B} requests (prompts {[len(r.prompt_tokens) for r in reqs]}"
+        f", padded to S={S}), {st['new_tokens']} new tokens each: prefill "
+        f"{st['prefill_s'] * 1e3:.1f} ms ({B * S / st['prefill_s']:.0f} "
+        f"prompt tok/s), decode {decode_tps:.1f} tok/s over "
+        f"{st['decode_steps']} steps, total {total_tps:.1f} tok/s; peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    want = {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
+            "ssd_scan": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want} for one "
+                             f"prefill")
+    toks = np.stack([o.tokens for o in outs])
+    if toks.shape != (B, 16) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {toks.shape} "
+                             f"[{toks.min()}, {toks.max()}]")
+    log(f"[lm] tokens of request 0: {toks[0].tolist()}")
+    breakdown = lm_breakdown(engine, reqs, dev)
+    log(f"[breakdown:lm] {json.dumps(breakdown)}")
+    return {"breakdown": breakdown, "launches": launches, "stats": st, "decode_tps": decode_tps,
+            "total_tps": total_tps, "prefill_ms": st["prefill_s"] * 1e3,
+            "peak_gib": peak / 2**30, "flash_args": cap_fa.args,
+            "flash_kwargs": cap_fa.kwargs, "ssd_args": cap_sd.args,
+            "ssd_kwargs": cap_sd.kwargs}
+
+
+def lm_breakdown(engine, reqs, dev) -> dict:
+    """One prefill and one decode step of the served batch under
+    ``torch.profiler``: device time by kernel group (the two LM kernels,
+    cuBLAS/CUTLASS GEMMs, everything else) and the device's busy and idle
+    share of the wall time.  Runs after the counted run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.from_numpy(engine._pad_batch(reqs)).to(dev)
+    model = engine.model
+    _, cache = model.prefill({"tokens": toks}, engine.max_len)
+    cur = torch.zeros((toks.shape[0], 1), dtype=torch.long, device=dev)
+    out = {}
+    for label, fn in (
+            ("prefill", lambda: model.prefill({"tokens": toks},
+                                              engine.max_len)),
+            ("decode_step", lambda: model.decode_step(cache, cur))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
+                  "other": 0.0}
+        n_kernels = 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = _device_us([e])
+            n_kernels += e.count
+            name = e.key.lower()
+            if "flash_attention_kernel" in name:
+                groups["flash_attention"] += us
+            elif "ssd_scan_kernel" in name:
+                groups["ssd_scan"] += us
+            elif "gemm" in name or "cutlass" in name:
+                groups["gemm"] += us
+            else:
+                groups["other"] += us
+        busy = sum(groups.values())
+        out[label] = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+                      "device_idle_share": 1.0 - busy / 1e6 / wall
+                      if busy > 0 else None, "kernels": n_kernels,
+                      **{f"{k}_ms": v / 1e3 for k, v in groups.items()}}
+    return out
+
+
+def kernel_device_ms_of(fn, key: str, launches: int = 10):
+    """Device time per launch of the kernel whose name contains ``key``,
+    read from ``torch.profiler`` (None where it sees no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(launches):
-            lib.iou_matrix_launch(x.data_ptr(), x.data_ptr(),
-                                  out.data_ptr(), B, n, n, stream)
+            fn()
         torch.cuda.synchronize()
-    us = _device_us(e for e in prof.key_averages()
-                    if "iou_matrix_kernel" in e.key)
+    us = _device_us(e for e in prof.key_averages() if key in e.key)
     return us / launches / 1e3 if us > 0 else None
+
+
+def flash_at_serving_shape(run: dict, dev) -> dict:
+    """The flash kernel on the inputs of the first shared-attention call of
+    the served prefill: against its plain version, then timed beside it and
+    beside ``scaled_dot_product_attention`` (a yardstick the port never
+    calls).  The bound counts the visible (query, key) pairs of this mask,
+    4*hd flops each (q.k and p.v), and q, k, v read and out written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+    q, k, v = run["flash_args"]
+    causal = run["flash_kwargs"].get("causal", True)
+    window = run["flash_kwargs"].get("window", 0)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    want = flash_attention_torch(q, k, v, causal=causal, window=window)
+    got = ops._launch(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    del want
+    log(f"[lm] flash_attention at the serving shape {(B, S, H, hd)} K={K} "
+        f"causal={causal} window={window}: max_abs_err={err:.3g}")
+    if not err <= FLASH_ATOL:
+        raise AssertionError(f"flash_attention off by {err} at the serving "
+                             f"shape")
+    lib = ops._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def kernel():
+        lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   got.data_ptr(), B, S, H, K, hd,
+                                   int(causal), int(window), stream)
+    ms = cuda_ms(kernel, reps=10, inner=10, warmup=3)
+    plain_ms = cuda_ms(lambda: flash_attention_torch(
+        q, k, v, causal=causal, window=window), reps=5, inner=2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = None
+    if K == H and not window:
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=10, inner=10, warmup=3)
+    device_ms = kernel_device_ms_of(kernel, "flash_attention_kernel")
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    vis = torch.ones((S, S), dtype=torch.bool, device=dev)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= (i - j) < window
+    pairs = B * H * int(vis.sum())
+    flops = pairs * 4 * hd
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    return bound_entry(ms, plain_ms, lib_ms, device_ms, flops, nbytes,
+                       [B, S, H, hd], err)
+
+
+def ssd_at_serving_shape(run: dict, dev) -> dict:
+    """The SSD kernel on the inputs of the first Mamba block's scan of the
+    served prefill: against its plain version (y and final state), then
+    timed beside it.  No single PyTorch call computes the scan.  The bound
+    counts C.B^T once per (batch, chunk) over the causal half (it is shared
+    by the heads), then per head the weighting and the M x product over
+    the causal half, the inter-chunk term and the state update; bytes are
+    x, dt, A, B, C read once and y and the final state written once."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    xh, dt, A, Bm, Cm, chunk = run["ssd_args"]
+    init = run["ssd_kwargs"].get("initial_state")
+    B, S, nh, hd = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    NC = S // Q
+    wy, wf = ssd_chunked(xh, dt, A, Bm, Cm, chunk, initial_state=init)
+    y, fin = ops._launch(xh, dt, A, Bm, Cm, Q, init)
+    torch.cuda.synchronize()
+    errs = []
+    for got, want in ((y, wy), (fin, wf)):
+        e = float((got - want).abs().max())
+        errs.append((e, e / max(float(want.abs().max()), 1e-30)))
+    del wy, wf
+    log(f"[lm] ssd_scan at the serving shape x={(B, S, nh, hd)} N={N} Q={Q}:"
+        f" y max_abs_err={errs[0][0]:.3g} (rel {errs[0][1]:.3g}), state "
+        f"max_abs_err={errs[1][0]:.3g} (rel {errs[1][1]:.3g})")
+    if not (errs[0][1] <= SSD_RTOL and errs[1][1] <= SSD_RTOL):
+        raise AssertionError("ssd_scan off at the serving shape")
+    lib = ops._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def kernel():
+        lib.ssd_scan_launch(xh.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                            Bm.data_ptr(), Cm.data_ptr(),
+                            init.data_ptr() if init is not None else None,
+                            y.data_ptr(), fin.data_ptr(), B, S, nh, hd, N, Q,
+                            stream)
+    ms = cuda_ms(kernel, reps=10, inner=10, warmup=3)
+    plain_ms = cuda_ms(lambda: ssd_chunked(xh, dt, A, Bm, Cm, chunk,
+                                           initial_state=init),
+                       reps=5, inner=2, warmup=1)
+    device_ms = kernel_device_ms_of(kernel, "ssd_scan_kernel")
+    tri = Q * (Q + 1) // 2
+    flops = (B * NC * tri * 2 * N
+             + B * nh * NC * (tri * (2 * hd + 2) + 4 * Q * N * hd))
+    nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * N
+                  + B * nh * hd * N * (2 if init is not None else 1))
+    return bound_entry(ms, plain_ms, None, device_ms, flops, nbytes,
+                       [B, S, nh, hd, N], errs[0][0])
+
+
+def bound_entry(ms, plain_ms, lib_ms, device_ms, flops, nbytes, shape,
+                err) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "device_ms": device_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "flops": flops, "bytes": nbytes, "timed_shape": shape,
+            "serving_max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: one full-width super-block, card against CPU
+# ---------------------------------------------------------------------------
+
+def lm_vs_cpu(dev) -> dict:
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    full = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=full.shared_attn_every)
+    t0 = time.perf_counter()
+    gpu = Model(cfg, device=dev, seed=1)
+    cpu = Model(cfg, device="cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    max_len = 320
+    eng_gpu = ServeEngine(cfg, gpu, device=dev, max_len=max_len)
+    eng_cpu = ServeEngine(cfg, cpu, device="cpu", max_len=max_len)
+    rng = np.random.default_rng(2)
+    reqs = [Request(rng.integers(0, cfg.vocab_size, L, dtype=np.int32),
+                    max_new_tokens=4, rid=i) for i, L in enumerate((256, 200))]
+    toks = torch.from_numpy(eng_cpu._pad_batch(reqs))
+    # teacher-forced: both fed the card's greedy tokens
+    lg, cg = gpu.prefill({"tokens": toks}, max_len)
+    lc, cc = cpu.prefill({"tokens": toks}, max_len)
+    errs, margins, steps = [], [], []
+    for step in range(4):
+        lg_h = lg.cpu()
+        errs.append(float((lg_h - lc).abs().max()))
+        top2 = torch.topk(lc, 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).numpy())
+        steps.append((lg_h.argmax(-1).numpy(), lc.argmax(-1).numpy()))
+        cur = lg.argmax(-1)[:, None]
+        if step < 3:
+            lg, cg = gpu.decode_step(cg, cur)
+            lc, cc = cpu.decode_step(cc, cur.cpu())
+    err = max(errs)
+    log(f"[lm-vs-cpu] one super-block ({cfg.num_layers} Mamba blocks + the "
+        f"shared block, full width), 2 requests x 256 tokens: logits "
+        f"max_abs_err per step {[f'{e:.3g}' for e in errs]} "
+        f"(|logits| max {float(lc.abs().max()):.3g}), tolerance "
+        f"{LM_LOGIT_ATOL}")
+    if not err <= LM_LOGIT_ATOL:
+        raise AssertionError(f"card and CPU logits differ by {err}")
+    for (g, c), m in zip(steps, margins):
+        sure = m > LM_LOGIT_ATOL
+        if (g[sure] != c[sure]).any():
+            raise AssertionError("greedy tokens differ where the top-2 "
+                                 "margin exceeds the tolerance")
+    # the served greedy tokens, through the engine on each device
+    tg = np.stack([o.tokens for o in eng_gpu.serve(reqs)])
+    tc = np.stack([o.tokens for o in eng_cpu.serve(reqs)])
+    for t in range(tg.shape[1]):
+        sure = margins[t] > LM_LOGIT_ATOL
+        if (tg[sure, t] != tc[sure, t]).any():
+            raise AssertionError(f"served tokens differ at step {t}")
+        if not sure.all():
+            break                       # past a near tie the paths may part
+    log(f"[lm-vs-cpu] served tokens card {tg.tolist()} cpu {tc.tolist()}; "
+        f"min top-2 margin {min(float(m.min()) for m in margins):.3g}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"max_abs_err": err}
 
 
 def main() -> int:
@@ -376,9 +840,11 @@ def main() -> int:
 
     # 1. build
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.kernels.ssd_scan import ops as sd_ops
     t0 = time.perf_counter()
-    libs = build.build_all([ops.SOURCE])
+    libs = build.build_all([ops.SOURCE, fa_ops.SOURCE, sd_ops.SOURCE])
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f}s")
     for src, lib in libs.items():
         report = lib.with_suffix(".log")
@@ -389,6 +855,10 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     iou = check_iou_kernel(dev)
+    t0 = time.perf_counter()
+    lmk = check_lm_kernels(dev)
+    log(f"[kernels] flash/ssd checks in {time.perf_counter() - t0:.1f}s: "
+        f"{json.dumps(lmk)}")
 
     # 3. serve at real size
     from repro_torch.federation.providers import (default_providers,
@@ -408,6 +878,23 @@ def main() -> int:
     for run, label in ((main3, "tab2"), (tab3, "tab3")):
         log(f"[breakdown:{label}] one cold 1024-request flush: "
             f"{json.dumps(flush_breakdown(run, dev))}")
+
+    # 4. the LM served at full width; 5. one super-block against the CPU
+    t0 = time.perf_counter()
+    lm = lm_serve(dev)
+    flash_t = flash_at_serving_shape(lm, dev)
+    ssd_t = ssd_at_serving_shape(lm, dev)
+    for name, t in (("flash_attention", flash_t), ("ssd_scan", ssd_t)):
+        log(f"[kernels] {name} timed at the serving shape "
+            f"{t['timed_shape']}: kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['flops']} flops, {t['bytes']} bytes)")
+    for key in ("flash_args", "ssd_args", "breakdown"):
+        lm.pop(key)
+    torch.cuda.empty_cache()
+    cmp = lm_vs_cpu(dev)
+    log(f"[lm] phases 4-5 in {time.perf_counter() - t0:.1f}s")
 
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -430,6 +917,27 @@ def main() -> int:
         "bound_by": timing["bound_by"], "library_ms": None,
         "device_ms": timing["device_ms"], "timed_shape": timing["shape"],
     }]
+    for name, t, err in (
+            ("flash_attention", flash_t, lmk["flash_max_abs_err"]),
+            ("ssd_scan", ssd_t, lmk["ssd_max_abs_err"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "replaces": {"flash_attention":
+                         "src/repro/kernels/flash_attention/kernel.py:30",
+                         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:24"
+                         }[name],
+            "launches": lm["launches"][name],
+            "max_abs_err": max(err, t["serving_max_abs_err"]),
+            "tolerance": (f"abs {FLASH_ATOL}" if name == "flash_attention"
+                          else f"{SSD_RTOL} of max |plain|"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "timed_shape": t["timed_shape"],
+        })
+    log(f"[lm] summary: {json.dumps({k: v for k, v in lm.items() if k not in ('flash_kwargs', 'ssd_kwargs')})} "
+        f"card-vs-cpu logits max_abs_err {cmp['max_abs_err']:.3g}")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

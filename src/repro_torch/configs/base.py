@@ -1,0 +1,218 @@
+"""Architecture configuration of the LM substrate (a copy of the reference's
+``configs/base.py`` dataclasses, unchanged in behaviour).
+
+Each ported architecture has one module in this package exporting
+``CONFIG`` (the exact full-scale config); ``get_arch`` maps ``--arch <id>``
+to it.  ``reduced()`` derives the CPU-smoke variant (2 layers,
+d_model<=256, <=4 experts).  Architectures whose model family is not ported
+yet are known by id and raise ``NotImplementedError`` from ``get_arch``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden dim
+    num_shared_experts: int = 0
+    d_shared: int = 0             # hidden dim of the shared expert(s)
+    router_aux_weight: float = 0.01
+    capacity_factor: float = 1.25
+    # layer index predicate: layers < first_dense_layers are dense
+    first_dense_layers: int = 0
+    d_ff_dense: int = 0           # FFN dim of the dense (non-MoE) layers
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"         # rmsnorm | layernorm
+    act: str = "silu"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    qk_norm: bool = False
+    parallel_block: bool = False  # command-r style parallel attn+mlp
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # vlm: cross-attention every `cross_attn_every` layers
+    cross_attn_every: int = 0
+    num_image_tokens: int = 0
+    d_vision: int = 0
+    # hybrid (zamba2): shared attention block applied every `shared_attn_every`
+    shared_attn_every: int = 0
+    # encoder-decoder (audio): num_layers == decoder layers
+    encoder_layers: int = 0
+    num_audio_frames: int = 0
+    # long-context plan: "native" (ssm/state/latent) or "sliding_window"
+    long_context: str = "sliding_window"
+    sliding_window: int = 8192
+    dtype: str = "bfloat16"
+    source: str = ""              # provenance citation
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        if self.family == "ssm" or (self.family == "hybrid"):
+            ssm = self.ssm
+            assert ssm is not None
+            di = ssm.d_inner(d)
+            nh = ssm.n_heads(d)
+            mamba = d * (2 * di + 2 * ssm.d_state * 1 + nh)  # in_proj(z,x,B,C,dt)
+            mamba += di * ssm.d_conv + di * d  # conv + out_proj
+            mamba += 2 * nh + di               # A_log, D, dt_bias-ish
+        if self.family == "ssm":
+            n += self.num_layers * (mamba + d)
+            return n
+        if self.mla is not None:
+            m = self.mla
+            attn = d * m.q_lora_rank + m.q_lora_rank * self.num_heads * (
+                m.qk_nope_head_dim + m.qk_rope_head_dim)
+            attn += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            attn += m.kv_lora_rank * self.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+            attn += self.num_heads * m.v_head_dim * d
+        else:
+            attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+                + self.num_heads * hd * d
+        ffn_dense = 3 * d * self.d_ff
+        if self.moe is not None:
+            mo = self.moe
+            ffn_moe = mo.num_experts * 3 * d * mo.d_expert \
+                + mo.num_shared_experts * 3 * d * mo.d_shared + d * mo.num_experts
+            n_moe_layers = self.num_layers - mo.first_dense_layers
+            n += mo.first_dense_layers * (attn + 3 * d * mo.d_ff_dense)
+            n += n_moe_layers * (attn + ffn_moe)
+        elif self.family == "hybrid":
+            # zamba: num_layers mamba blocks + ONE shared attn+ffn block
+            n += self.num_layers * (mamba + d)
+            n += attn + ffn_dense
+        else:
+            layers = self.num_layers + self.encoder_layers
+            n += layers * (attn + ffn_dense)
+            if self.is_encoder_decoder:  # cross attention in decoder
+                n += self.num_layers * attn
+        if self.cross_attn_every:
+            n_cross = self.num_layers // self.cross_attn_every
+            n += n_cross * (attn + ffn_dense)
+        return n
+
+    def reduced(self) -> "ArchConfig":
+        """CPU-smoke variant: 2 layers, d_model<=256, <=4 experts."""
+        d = min(self.d_model, 256)
+        heads = min(self.num_heads, 4)
+        kv = min(self.num_kv_heads, heads)
+        hd = d // heads if heads else 0
+        kw = dict(
+            num_layers=2, d_model=d, num_heads=heads, num_kv_heads=kv,
+            head_dim=hd, d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512), sliding_window=64,
+            num_image_tokens=min(self.num_image_tokens, 16) if self.num_image_tokens else 0,
+            d_vision=min(self.d_vision, d) if self.d_vision else 0,
+            num_audio_frames=min(self.num_audio_frames, 16) if self.num_audio_frames else 0,
+            encoder_layers=2 if self.encoder_layers else 0,
+        )
+        if self.moe is not None:
+            kw["moe"] = MoEConfig(
+                num_experts=4, top_k=2, d_expert=64,
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                d_shared=64 if self.moe.num_shared_experts else 0,
+                first_dense_layers=min(self.moe.first_dense_layers, 1),
+                d_ff_dense=128 if self.moe.first_dense_layers else 0,
+            )
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                  qk_nope_head_dim=hd, qk_rope_head_dim=hd // 2,
+                                  v_head_dim=hd)
+        if self.ssm is not None:
+            kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=32,
+                                  chunk=32)
+        if self.cross_attn_every:
+            kw["cross_attn_every"] = 2
+        if self.shared_attn_every:
+            kw["shared_attn_every"] = 2
+        return dataclasses.replace(self, **kw)
+
+
+ARCH_IDS = [
+    "command-r-plus-104b",
+    "olmoe-1b-7b",
+    "qwen1.5-110b",
+    "stablelm-12b",
+    "deepseek-v2-236b",
+    "llama-3.2-vision-11b",
+    "mamba2-370m",
+    "qwen1.5-0.5b",
+    "zamba2-2.7b",
+    "seamless-m4t-medium",
+]
+
+# the architectures whose model family the port runs
+PORTED = ("zamba2-2.7b",)
+
+
+def get_arch(arch_id: str) -> ArchConfig:
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    if arch_id not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet; the port runs "
+            f"{list(PORTED)}")
+    mod = importlib.import_module(
+        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
+    return mod.CONFIG

@@ -3,7 +3,9 @@ port's modules, so both packages can be run on the same weights.
 
 The reference keeps a linear layer as ``{"w": (fan_in, fan_out), "b":
 (fan_out,)}`` and convolution kernels as HWIO; ``nn.Linear`` stores
-``(out, in)`` and ``F.conv2d`` takes OIHW.
+``(out, in)`` and ``F.conv2d`` takes OIHW.  The LM keeps the reference's
+``(fan_in, fan_out)`` layout, but one module per block where the reference
+stacks the layers along leading axes.
 """
 from __future__ import annotations
 
@@ -12,7 +14,10 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.networks import MLP, FeatureExtractor
+from repro_torch.models.layers import ParamTree
+from repro_torch.models.model import Model
 
 
 def _t(x) -> torch.Tensor:
@@ -68,3 +73,65 @@ def unflatten_feature_params(flat: Mapping[str, np.ndarray]) -> dict:
     return {"convs": [{k: flat[f"convs.{i}.{k}"] for k in ("dw", "pw")}
                       for i in range(n)],
             "head": {"w": flat["head.w"], "b": flat["head.b"]}}
+
+
+def _load_tree(tree: ParamTree, params: Mapping, index: tuple, path: str
+               ) -> None:
+    """Copy ``params`` (nested numpy, each leaf with the leading stack axes
+    ``index`` selects) into the parameters of ``tree``; raise on a missing
+    or extra key or a shape that does not fit."""
+    if sorted(tree.keys()) != sorted(params.keys()):
+        raise ValueError(f"{path or 'params'}: keys {sorted(params.keys())} "
+                         f"do not fit {sorted(tree.keys())}")
+    for key in tree.keys():
+        sub, src = tree[key], params[key]
+        if isinstance(sub, ParamTree):
+            _load_tree(sub, src, index, f"{path}.{key}")
+            continue
+        arr = np.asarray(src)
+        lead = arr.shape[:len(index)]
+        if any(i >= n for i, n in zip(index, lead)) or \
+                arr.shape[len(index):] != tuple(sub.shape):
+            raise ValueError(f"{path}.{key}: shape {arr.shape} does not fit "
+                             f"{tuple(sub.shape)} at stack index {index}")
+        with torch.no_grad():
+            sub.copy_(torch.from_numpy(np.array(arr[index])))
+
+
+def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
+                       model: Optional[Model] = None) -> Model:
+    """Reference LM pytree (numpy leaves) -> the port's ``Model``.
+
+    Hybrid family: ``blocks`` leaves carry leading axes ``(n_super, per)``
+    and become ``model.blocks[s * per + i]``; ``shared_attn`` is one block.
+    Loads into ``model`` in place when given (its device is kept), else
+    builds a CPU model.  Raises on any key or shape that does not fit.
+    """
+    if model is None:
+        model = Model(cfg, device="cpu", init=False)
+    if model.cfg != cfg:
+        raise ValueError(f"model was built for {model.cfg.name}, not "
+                         f"{cfg.name}")
+    want = {"embed", "final_norm", "unembed", "blocks", "shared_attn"}
+    if set(params.keys()) != want:
+        raise ValueError(f"params keys {sorted(params.keys())} do not fit "
+                         f"the hybrid family's {sorted(want)}")
+    for name in ("embed", "unembed"):
+        arr = np.asarray(params[name])
+        dst = getattr(model, name)
+        if arr.shape != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {arr.shape} does not fit "
+                             f"{tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(torch.from_numpy(np.array(arr)))
+    _load_tree(model.final_norm, params["final_norm"], (), "final_norm")
+    _load_tree(model.shared_attn, params["shared_attn"], (), "shared_attn")
+    lead = np.shape(params["blocks"]["norm"]["scale"])[:2]
+    if tuple(lead) != (model.n_super, model.per):
+        raise ValueError(f"blocks are stacked {tuple(lead)}, the model has "
+                         f"({model.n_super}, {model.per})")
+    for s in range(model.n_super):
+        for i in range(model.per):
+            _load_tree(model.blocks[s * model.per + i], params["blocks"],
+                       (s, i), f"blocks[{s},{i}]")
+    return model

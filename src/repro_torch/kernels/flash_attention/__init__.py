@@ -1,0 +1,2 @@
+"""Flash attention: CUDA kernel (``csrc/``), plain version (``ref``),
+checked wrapper (``ops``)."""

@@ -1,12 +1,20 @@
-"""Federation request serving on the GPU (synchronous path).
+"""Serving on the GPU: federation requests or an LM.
 
-Routes a stream of image requests through the Armol selector (a SAC
-actor at full width) + provider fan-out + ensemble, in flushes of
-``--flush`` requests through ``FederationService.handle_many`` (one actor
-forward and one batched IoU kernel launch per flush).
+``--federation`` routes a stream of image requests through the Armol
+selector (a SAC actor at full width) + provider fan-out + ensemble, in
+flushes of ``--flush`` requests through ``FederationService.handle_many``
+(one actor forward and one batched IoU kernel launch per flush).
+
+``--arch <id>`` serves an LM through ``ServeEngine`` (prefill through the
+flash-attention and SSD kernels, then greedy or temperature decode),
+reduced unless ``--full``.  The longest prompt is exactly
+``--prompt-len`` tokens (the others are drawn shorter and left-padded),
+so that length must be at most the SSM chunk or a multiple of it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --federation \\
         --images 5000 --requests 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --full --requests 8 --prompt-len 1024 --new-tokens 16 --max-len 1040
 
 ``--device cpu`` runs the plain PyTorch/numpy versions instead of the
 kernels; without it the run needs a GPU.
@@ -59,24 +67,78 @@ def run_federation(args) -> int:
     return 0
 
 
+def run_lm(args) -> int:
+    from repro_torch.configs.base import get_arch
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    L, chunk = args.prompt_len, cfg.ssm.chunk
+    if L < 1 or (L > chunk and L % chunk):
+        raise SystemExit(f"--prompt-len {L} must be at most the SSM chunk "
+                         f"({chunk}) or a multiple of it")
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, max_len=args.max_len, seed=args.seed,
+                         device=args.device)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(args.seed)
+    lens = rng.integers(min(4, L), L + 1, size=args.requests)
+    lens[0] = L
+    reqs = [Request(rng.integers(0, cfg.vocab_size, size=int(n),
+                                 dtype=np.int32),
+                    max_new_tokens=args.new_tokens,
+                    temperature=args.temperature, rid=i)
+            for i, n in enumerate(lens)]
+    print(f"[serve] {cfg.name} ({'full' if args.full else 'reduced'}, "
+          f"device={engine.device}): {len(reqs)} requests, prompt {L}, "
+          f"{args.new_tokens} new tokens, max_len {args.max_len} "
+          f"(setup {setup_s:.2f}s)")
+    t0 = time.perf_counter()
+    outs = engine.serve(reqs, seed=args.seed)
+    dt = time.perf_counter() - t0
+    st = engine.last_stats
+    tok = sum(len(o.tokens) for o in outs)
+    print(f"[serve] {tok} tokens in {dt:.2f}s ({tok / dt:.1f} tok/s); "
+          f"prefill {st['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{st['decode_steps'] * len(reqs) / max(st['decode_s'], 1e-9):.1f}"
+          f" tok/s")
+    for o in outs[:3]:
+        print(f"  rid={o.rid} tokens={o.tokens[:8].tolist()}...")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--federation", action="store_true",
-                    help="serve federation requests (the one serving "
-                         "path of the port so far)")
+                    help="serve federation requests instead of the LM")
+    ap.add_argument("--arch", default="",
+                    help="LM architecture (required unless --federation)")
+    ap.add_argument("--full", action="store_true",
+                    help="LM: full-size config (default: reduced)")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="LM: longest prompt (tokens)")
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--images", type=int, default=120,
-                    help="trace-set size")
-    ap.add_argument("--requests", type=int, default=400)
+                    help="federation: trace-set size")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="request count (default: 8 LM, 400 federation)")
     ap.add_argument("--flush", type=int, default=1024,
-                    help="requests per handle_many call")
+                    help="federation: requests per handle_many call")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if not args.federation:
-        ap.error("only --federation serving is ported")
-    return run_federation(args)
+    if args.requests is None:
+        args.requests = 400 if args.federation else 8
+    if args.federation:
+        return run_federation(args)
+    if not args.arch:
+        ap.error("--arch is required unless --federation is given")
+    return run_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,143 @@
+"""Mamba-2 block (SSD, state-space duality): chunked prefill + one-step decode.
+
+Shapes (G = 1 state group), as in the reference's ``models/ssm.py``:
+  projections : in_z/in_x (d, d_inner), in_bc (d, 2N), in_dt (d, nh)
+  x heads     : (B, S, nh, hd)      B/C: (B, S, N)
+  ssm state   : (B, nh, hd, N)
+  conv states : (B, d_inner, d_conv-1) and (B, 2N, d_conv-1)
+
+The input projection is split per segment (z, x, BC, dt) and the depthwise
+conv likewise (conv over x, conv over BC), which is the reference's layout.
+The chunk scan of the prefill goes through the SSD kernel
+(``kernels.ssd_scan.ops``); the one-token decode stays plain PyTorch, as in
+the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.layers import (F32, dense_init, gated_rmsnorm,
+                                       init_norm)
+
+
+def dims(cfg: ArchConfig):
+    ssm = cfg.ssm
+    d_inner = ssm.d_inner(cfg.d_model)
+    nh = ssm.n_heads(cfg.d_model)
+    return d_inner, nh, 2 * ssm.d_state
+
+
+def init_mamba_block(cfg: ArchConfig, gen: Optional[torch.Generator],
+                     dev) -> Dict:
+    ssm = cfg.ssm
+    d = cfg.d_model
+    d_inner, nh, d_bc = dims(cfg)
+    return {
+        "in_z": dense_init((d, d_inner), gen, dev),
+        "in_x": dense_init((d, d_inner), gen, dev),
+        "in_bc": dense_init((d, d_bc), gen, dev),
+        "in_dt": dense_init((d, nh), gen, dev),
+        "conv_x": dense_init((d_inner, ssm.d_conv), gen, dev, scale=1.0),
+        "conv_x_b": torch.zeros((d_inner,), dtype=F32, device=dev),
+        "conv_bc": dense_init((d_bc, ssm.d_conv), gen, dev, scale=1.0),
+        "conv_bc_b": torch.zeros((d_bc,), dtype=F32, device=dev),
+        "A_log": torch.zeros((nh,), dtype=F32, device=dev),  # A = -1
+        "D": torch.ones((nh,), dtype=F32, device=dev),
+        "dt_bias": torch.zeros((nh,), dtype=F32, device=dev),
+        "norm": init_norm(d_inner, "rmsnorm", dev),
+        "out_proj": dense_init((d_inner, d), gen, dev),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 d_conv: int) -> torch.Tensor:
+    """Depthwise causal conv over seq. x: (B, S, C), w: (C, d_conv)."""
+    pad = F.pad(x, (0, 0, d_conv - 1, 0))
+    acc = torch.zeros_like(x) + b.to(x.dtype)
+    S = x.shape[1]
+    for i in range(d_conv):
+        acc = acc + pad[:, i:i + S, :] * w[:, i]
+    return F.silu(acc)
+
+
+def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
+                  return_state: bool = False, initial_state=None):
+    """Full-sequence Mamba-2 block. x: (B,S,d) -> (B,S,d)."""
+    ssm = cfg.ssm
+    d_inner, nh, d_bc = dims(cfg)
+    hd = ssm.head_dim
+    B, S, _ = x.shape
+    N = ssm.d_state
+
+    z = x @ p["in_z"]
+    xr = x @ p["in_x"]
+    bc = x @ p["in_bc"]
+    dt = x @ p["in_dt"]
+
+    def tail(v):
+        if S >= ssm.d_conv - 1:
+            return v[:, -(ssm.d_conv - 1):, :]
+        return F.pad(v, (0, 0, ssm.d_conv - 1 - S, 0))
+    conv_x_tail, conv_bc_tail = tail(xr), tail(bc)
+
+    xr = _causal_conv(xr, p["conv_x"], p["conv_x_b"], ssm.d_conv)
+    bc = _causal_conv(bc, p["conv_bc"], p["conv_bc_b"], ssm.d_conv)
+    xs = xr.reshape(B, S, nh, hd)
+    Bmat = bc[..., :N].contiguous()
+    Cmat = bc[..., N:].contiguous()
+    dtf = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, final = ssd_ops.ssd_scan(xs, dtf, A, Bmat, Cmat, ssm.chunk,
+                                initial_state=initial_state)
+    y = y + p["D"][None, None, :, None] * xs.float()
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = gated_rmsnorm(p["norm"], y, z)
+    out = y @ p["out_proj"]
+    if return_state:
+        conv_state = (conv_x_tail.transpose(1, 2),
+                      conv_bc_tail.transpose(1, 2))
+        return out, (final, conv_state)
+    return out
+
+
+def mamba_decode(p, x: torch.Tensor, state: Tuple, cfg: ArchConfig):
+    """One-token decode. x: (B,1,d); state = (ssm_state, (conv_x, conv_bc)).
+    Returns (y, new state); the inputs are not modified."""
+    ssm = cfg.ssm
+    d_inner, nh, d_bc = dims(cfg)
+    hd = ssm.head_dim
+    N = ssm.d_state
+    B = x.shape[0]
+    ssm_state, (cx, cbc) = state            # (B,nh,hd,N), (B,d_inner,3), ...
+    xt = x[:, 0, :]
+    z = xt @ p["in_z"]
+    xr = xt @ p["in_x"]
+    bc = xt @ p["in_bc"]
+    dt = xt @ p["in_dt"]
+
+    def conv_step(prev, new, w, b):
+        win = torch.cat([prev, new[:, :, None]], dim=-1)
+        out = F.silu((win * w[None]).sum(dim=-1) + b)
+        return out, win[:, :, 1:]
+    xr, cx = conv_step(cx, xr, p["conv_x"], p["conv_x_b"])
+    bc, cbc = conv_step(cbc, bc, p["conv_bc"], p["conv_bc_b"])
+
+    xs = xr.reshape(B, nh, hd)
+    Bv = bc[:, :N].float()
+    Cv = bc[:, N:].float()
+    dtf = F.softplus(dt.float() + p["dt_bias"])      # (B,nh)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dtf * A)                        # (B,nh)
+    upd = (dtf[:, :, None, None] * Bv[:, None, None, :]
+           * xs.float()[:, :, :, None])
+    ssm_state = decay[:, :, None, None] * ssm_state + upd
+    y = torch.einsum("bn,bhpn->bhp", Cv, ssm_state)
+    y = y + p["D"][None, :, None] * xs.float()
+    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = gated_rmsnorm(p["norm"], y, z[:, None, :])
+    return y @ p["out_proj"], (ssm_state, (cx, cbc))

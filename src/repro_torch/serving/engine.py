@@ -1,0 +1,118 @@
+"""Batched LM serving engine: static-batch prefill + decode over the port's
+model.  Requests are left-padded with token 0 to a common prompt length
+(pad tokens are attended and scanned, as in the reference), prefilled
+once, then decoded greedily (or by temperature sampling) to their
+per-request stop length with a shared cache: the provider-side serving
+loop that a federation sits on top of.
+
+Runs on the GPU unless ``device="cpu"`` is passed; without a GPU it
+raises.  Float32 matrix products are pinned to full float32 (no TF32) on
+the card, as the reference serves in float32.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import Model
+
+
+@dataclass
+class Request:
+    prompt_tokens: np.ndarray            # (L,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    rid: int = 0
+
+
+@dataclass
+class Completion:
+    rid: int
+    tokens: np.ndarray
+    latency_s: float
+
+
+def pin_float32() -> None:
+    """Full float32 in matrix products and convolutions (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class ServeEngine:
+    """``model`` (a ``Model`` on ``device``) or weights drawn from ``seed``.
+    ``last_stats`` holds the phase times of the latest ``serve``."""
+
+    def __init__(self, cfg: ArchConfig, model: Optional[Model] = None, *,
+                 max_len: int = 256, seed: int = 0,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        pin_float32()
+        if model is None:
+            model = Model(cfg, device=self.device, seed=seed)
+        elif model.device != self.device:
+            raise ValueError(f"model lies on {model.device}, the engine "
+                             f"serves on {self.device}")
+        self.model = model
+        self.max_len = max_len
+        self.last_stats: Dict[str, float] = {}
+
+    def _pad_batch(self, requests: List[Request]) -> np.ndarray:
+        L = max(len(r.prompt_tokens) for r in requests)
+        toks = np.zeros((len(requests), L), np.int64)
+        for i, r in enumerate(requests):
+            toks[i, L - len(r.prompt_tokens):] = r.prompt_tokens  # left-pad
+        return toks
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def serve(self, requests: List[Request], *, seed: int = 0
+              ) -> List[Completion]:
+        t0 = time.perf_counter()
+        toks = torch.from_numpy(self._pad_batch(requests)).to(self.device)
+        logits, cache = self.model.prefill({"tokens": toks}, self.max_len)
+        self._sync()
+        t1 = time.perf_counter()
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        temps = [float(r.temperature) for r in requests]
+        max_new = max(r.max_new_tokens for r in requests)
+        cur = self._sample(logits, temps, gen)
+        out = [cur]
+        # the reference decodes once more after the last token and drops
+        # the result; that step is skipped here (same tokens)
+        for _ in range(max_new - 1):
+            logits, cache = self.model.decode_step(cache, cur[:, None])
+            cur = self._sample(logits, temps, gen)
+            out.append(cur)
+        tokens = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        t2 = time.perf_counter()
+        self.last_stats = {
+            "batch": len(requests), "prompt_len": int(toks.shape[1]),
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "decode_steps": max_new - 1, "new_tokens": max_new,
+        }
+        dt = t2 - t0
+        return [Completion(r.rid, tokens[i, :r.max_new_tokens], dt)
+                for i, r in enumerate(requests)]
+
+    def _sample(self, logits: torch.Tensor, temps: List[float],
+                gen: torch.Generator) -> torch.Tensor:
+        greedy = torch.argmax(logits, dim=-1)
+        if max(temps) == 0.0:
+            return greedy
+        t = torch.tensor(temps, dtype=torch.float32, device=logits.device)
+        # Gumbel-max: a categorical draw from softmax(logits / t)
+        u = torch.rand(logits.shape, generator=gen, device=logits.device)
+        u = u.clamp_min(torch.finfo(torch.float32).tiny)
+        noisy = torch.argmax(logits / t.clamp_min(1e-6)[:, None]
+                             - torch.log(-torch.log(u)), dim=-1)
+        return torch.where(t > 0, noisy, greedy)

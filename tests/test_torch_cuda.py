@@ -65,3 +65,128 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         ops.iou_matrix_op(a, a.cpu())
     with pytest.raises(ValueError, match="aligned"):
         ops.iou_matrix_op(a.view(-1)[1:29].view(7, 4), a)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the SSD scan (the LM path)
+# ---------------------------------------------------------------------------
+
+# f32 on both sides, summed in another order (online softmax over KV tiles
+# vs one softmax over the row); the reference's own flash test uses 2e-5
+FLASH_ATOL = 2e-5
+# of max |plain|: the chunk cumsum and the products are summed in another
+# order over up to 256 steps, and exp(a_cs) amplifies the cumsum's rounding
+SSD_RTOL = 5e-5
+
+
+def qkv(rng, B, S, H, K, hd, dev):
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return t(B, S, H, hd), t(B, S, K, hd), t(B, S, K, hd)
+
+
+@pytest.mark.parametrize("S,H,K,hd,causal,window", [
+    (1, 2, 2, 64, True, 0), (7, 4, 2, 80, True, 0), (33, 4, 4, 64, False, 0),
+    (130, 4, 1, 80, True, 8), (1000, 2, 2, 80, True, 64),
+    (257, 2, 2, 128, False, 0)])
+def test_flash_kernel_matches_plain(dev, S, H, K, hd, causal, window):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    q, k, v = qkv(np.random.default_rng(S), 2, S, H, K, hd, dev)
+    before = ops.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    want = flash_attention_torch(q, k, v, causal=causal, window=window)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= FLASH_ATOL
+
+
+def ssd_inputs(rng, B, S, nh, hd, N, dev, init):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    x = t(rng.standard_normal((B, S, nh, hd)))
+    dt = t(rng.random((B, S, nh)) * 0.5 + 0.05)
+    A = t(-(rng.random(nh) * 0.9 + 0.3))
+    Bm = t(rng.standard_normal((B, S, N)))
+    Cm = t(rng.standard_normal((B, S, N)))
+    st = t(rng.standard_normal((B, nh, hd, N))) if init else None
+    return x, dt, A, Bm, Cm, st
+
+
+@pytest.mark.parametrize("S,chunk,hd,N,init", [
+    (8, 8, 64, 16, False), (128, 32, 32, 16, True), (1024, 256, 64, 64, False),
+    (256, 256, 64, 128, True), (96, 32, 16, 32, False)])
+def test_ssd_kernel_matches_plain(dev, S, chunk, hd, N, init):
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    args = ssd_inputs(np.random.default_rng(S + N), 2, S, 3, hd, N, dev,
+                      init)
+    before = ops.LAUNCHES
+    y, fin = ops.ssd_scan(*args[:5], chunk, initial_state=args[5])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    wy, wf = ssd_chunked(*args[:5], chunk, initial_state=args[5])
+    for got, want in ((y, wy), (fin, wf)):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= \
+            SSD_RTOL * float(want.abs().max())
+
+
+def test_lm_kernels_reject_what_they_do_not_take(dev):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    q, k, v = qkv(np.random.default_rng(0), 1, 16, 2, 2, 64, dev)
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="different devices"):
+        fa.flash_attention(q, k.cpu(), v)
+    q40, k40, v40 = qkv(np.random.default_rng(0), 1, 16, 2, 2, 40, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q40, k40, v40)
+    x, dt, A, Bm, Cm, _ = ssd_inputs(np.random.default_rng(0), 1, 64, 2,
+                                     64, 16, dev, False)
+    with pytest.raises(TypeError, match="float32"):
+        sd.ssd_scan(x.double(), dt, A, Bm, Cm, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        sd.ssd_scan(x, dt, A, Bm.transpose(1, 2).contiguous()
+                    .transpose(1, 2), Cm, 32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        sd.ssd_scan(x, dt, A, Bm, Cm, 48)
+    x8, dt8, A8, B8, C8, _ = ssd_inputs(np.random.default_rng(0), 1, 64, 2,
+                                        64, 8, dev, False)
+    with pytest.raises(ValueError, match="not supported"):
+        sd.ssd_scan(x8, dt8, A8, B8, C8, 32)
+
+
+def test_reduced_zamba2_on_the_card_matches_the_cpu(dev):
+    """Prefill and four greedy decode steps of the reduced model, on the
+    card through both kernels and on the CPU through their plain versions,
+    from the same weights."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    cfg = get_arch("zamba2-2.7b").reduced()
+    gpu = Model(cfg, device=dev, seed=3)
+    cpu = Model(cfg, device="cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 128)))
+    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    lg, cg = gpu.prefill({"tokens": toks}, 160)
+    assert (fa.LAUNCHES - f0, sd.LAUNCHES - s0) == (1, 2)
+    lc, cc = cpu.prefill({"tokens": toks}, 160)
+    assert float((lg.cpu() - lc).abs().max()) < 1e-4
+    for key in ("ssm", "conv_x", "conv_bc", "k", "v"):
+        assert float((cg[key].cpu() - cc[key]).abs().max()) < 1e-4, key
+    for _ in range(4):
+        cur = lc.argmax(-1)[:, None]
+        lg, cg = gpu.decode_step(cg, cur)
+        lc, cc = cpu.decode_step(cc, cur)
+        assert float((lg.cpu() - lc).abs().max()) < 1e-4

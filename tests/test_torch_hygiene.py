@@ -29,7 +29,12 @@ def port_modules():
 
 def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     mods = port_modules()
-    assert len(mods) > 20
+    assert len(mods) > 30
+    for m in ("repro_torch.models.model", "repro_torch.serving.engine",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.ssd_scan.ops",
+              "repro_torch.configs.zamba2_2_7b"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -109,3 +114,39 @@ def test_serve_cli_raises_without_gpu_and_runs_on_cpu():
                          capture_output=True, text=True, timeout=120)
     assert cpu.returncode == 0, cpu.stderr
     assert "8 requests" in cpu.stdout
+
+
+def test_lm_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("zamba2-2.7b").reduced()
+    for call in (lambda: ServeEngine(cfg), lambda: Model(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    eng = ServeEngine(cfg, max_len=48, device="cpu")
+    assert eng.model.device.type == "cpu"
+    out = eng.serve([Request(np.arange(1, 33, dtype=np.int32),
+                             max_new_tokens=3)])
+    assert out[0].tokens.shape == (3,)
+
+
+def test_lm_serve_cli_raises_without_gpu_and_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "zamba2-2.7b", "--requests", "3", "--prompt-len", "32",
+            "--new-tokens", "4", "--max-len", "64"]
+    gpu = subprocess.run(base, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert gpu.returncode != 0
+    assert "no CUDA device" in gpu.stderr
+    cpu = subprocess.run(base + ["--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert cpu.returncode == 0, cpu.stderr
+    assert "3 requests" in cpu.stdout and "12 tokens" in cpu.stdout
+    bad = subprocess.run(base[:-6] + ["--prompt-len", "40", "--device",
+                                      "cpu"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert bad.returncode != 0 and "multiple" in bad.stderr
