@@ -7,7 +7,8 @@ Phases, each fatal on failure (no result line is printed then):
 
   1. build   — compile every CUDA kernel of the port from the sources in
                this checkout (one nvcc per source, all at once) and print
-               each one's ptxas registers, shared memory and spills;
+               each entry function's ptxas registers, shared memory and
+               spills;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card: the IoU kernel with ``torch.equal`` (bit equality),
                flash attention and the SSD scan within stated float32
@@ -26,7 +27,9 @@ Phases, each fatal on failure (no result line is printed then):
                1024 tokens, 16 new tokens.  Launch counters are zeroed just
                before and read just after (flash 9, SSD 54 per prefill);
                each kernel is held against its plain version on the inputs
-               of its first call in that run, and timed there;
+               of its first call in that run, and timed there beside its
+               bound on the route it takes (3xTF32 on the tensor cores) and
+               on the CUDA cores (the bound of the design it replaced);
   5. lm vs cpu — the full-width model cut to one super-block (6 Mamba
                blocks + the shared block) on the card and on the CPU from
                the same weights: logits within a stated tolerance, greedy
@@ -50,6 +53,9 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
+TF32_FLOPS = 495e12            # H100 SXM TF32 tensor-core rate (dense); a
+                               # 3xTF32 product costs three TF32 products
+FLASH_SOFTMAX_FLOPS = 5        # per visible pair: scale, max, sub, exp, sum
 IOU_FLOPS_PER_PAIR = 20        # 4 max/min, 2 areas, inter, union, div
 
 # Tolerances of the LM kernels against their plain versions (float32 on
@@ -364,7 +370,7 @@ def flush_breakdown(run: dict, dev) -> dict:
 def kernel_device_ms(boxes_list, dev, launches: int = 200):
     """Device time per launch of the IoU kernel on one flush's padded
     batch, read from ``torch.profiler`` (None where it sees no device
-    time)."""
+    time), and the CUDA kernels per launch."""
     import torch
     from repro_torch.kernels.iou_matrix import ops
 
@@ -372,10 +378,11 @@ def kernel_device_ms(boxes_list, dev, launches: int = 200):
     B, n = x.shape[0], x.shape[1]
     out = torch.empty((B, n, n), dtype=torch.float32, device=dev)
     lib, stream = ops._library(), torch.cuda.current_stream(dev).cuda_stream
-    return kernel_device_ms_of(
+    device_ms, per_call, _ = kernel_device_ms_of(
         lambda: lib.iou_matrix_launch(x.data_ptr(), x.data_ptr(),
                                       out.data_ptr(), B, n, n, stream),
         "iou_matrix_kernel", launches)
+    return device_ms, per_call
 
 
 # ---------------------------------------------------------------------------
@@ -468,8 +475,65 @@ def check_lm_kernels(dev) -> dict:
                         raise AssertionError(f"ssd_scan off by {ry}, {rf} "
                                              f"of max (> {SSD_RTOL})")
                     ssd_max = [max(ssd_max[0], ey), max(ssd_max[1], ry)]
+    padded = padded_run_errs(dev)
     return {"flash_max_abs_err": flash_max, "ssd_max_abs_err": ssd_max[0],
-            "ssd_max_rel_err": ssd_max[1]}
+            "ssd_max_rel_err": ssd_max[1], "padded_run": padded}
+
+
+def ssd_recurrence_f64(x, dt, A, Bm, Cm):
+    """The SSM step by step in float64: h <- exp(dt A) h + dt x (x) B,
+    y = h . C (the function the chunked scan computes)."""
+    import torch
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    h = x.new_zeros(x.shape[:1] + x.shape[2:] + Bm.shape[-1:])
+    ys = []
+    for s in range(x.shape[1]):
+        h = torch.exp(dt[:, s] * A)[:, :, None, None] * h + \
+            (dt[:, s, :, None] * x[:, s])[..., None] * Bm[:, s, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, s]))
+    return torch.stack(ys, dim=1), h
+
+
+def padded_run_errs(dev) -> dict:
+    """A left-padded prompt: 1000 equal rows, then 24 random ones, where
+    ~1000 terms of one sign meet in one sum.  Flash (1000 equal q/k/v rows)
+    and the SSD scan (equal x, B, C and dt = 0.002, a slow decay) against
+    float64 oracles, beside the float32 plain versions' own errors."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    out = {}
+    q, k, v = rand_qkv(np.random.default_rng(5), 2, 1024, 4, 4, 80, dev)
+    for t in (q, k, v):
+        t[:, :1000] = t[:, :1] * 2.0
+    want = flash_attention_torch(q.double(), k.double(), v.double(),
+                                 causal=True)
+    for label, got in (("kernel", fa.flash_attention(q, k, v, causal=True)),
+                       ("plain", flash_attention_torch(q, k, v,
+                                                       causal=True))):
+        out[f"flash_{label}_abs"] = float((got.double() - want).abs().max())
+    x, dt, A, Bm, Cm, _ = rand_ssd(np.random.default_rng(11), 2, 1024, 3, 64,
+                                   64, dev, False)
+    for t in (x, Bm, Cm):
+        t[:, :1000] = t[:, :1]
+    dt[:, :1000] = 0.002
+    wy, wf = ssd_recurrence_f64(x, dt, A, Bm, Cm)
+    for Q in (256, 1024):
+        for label, fn in (("kernel", sd.ssd_scan), ("plain", ssd_chunked)):
+            y, fin = fn(x, dt, A, Bm, Cm, Q)
+            out[f"ssd_Q{Q}_{label}_rel"] = max(
+                float((y.double() - wy).abs().max() / wy.abs().max()),
+                float((fin.double() - wf).abs().max() / wf.abs().max()))
+    log(f"[kernels] left-padded run of 1000 equal rows against float64: "
+        f"{json.dumps(out)}")
+    if not (out["flash_kernel_abs"] <= FLASH_ATOL
+            and out["ssd_Q256_kernel_rel"] <= SSD_RTOL
+            and out["ssd_Q1024_kernel_rel"] <= SSD_RTOL):
+        raise AssertionError(f"a kernel drifted on a padded run: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -604,9 +668,9 @@ def lm_breakdown(engine, reqs, dev) -> dict:
             us = _device_us([e])
             n_kernels += e.count
             name = e.key.lower()
-            if "flash_attention_kernel" in name:
+            if "flash_attention_" in name:
                 groups["flash_attention"] += us
-            elif "ssd_scan_kernel" in name:
+            elif "ssd_scan_" in name:
                 groups["ssd_scan"] += us
             elif "gemm" in name or "cutlass" in name:
                 groups["gemm"] += us
@@ -620,19 +684,37 @@ def lm_breakdown(engine, reqs, dev) -> dict:
     return out
 
 
-def kernel_device_ms_of(fn, key: str, launches: int = 10):
-    """Device time per launch of the kernel whose name contains ``key``,
-    read from ``torch.profiler`` (None where it sees no device time)."""
+def kernel_device_ms_of(fn, prefix: str, calls: int = 10,
+                        windows: int = 3):
+    """Device time per call of ``fn`` summed over every CUDA kernel whose
+    name contains ``prefix``, the number of such kernels per call, and the
+    time per call of each of them by name, read from ``torch.profiler``
+    (time None where it sees no device time).  The tracer can drop kernel
+    records from a short window, so of ``windows`` windows the one with
+    the most kernel records is kept."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    us = _device_us(e for e in prof.key_averages() if key in e.key)
-    return us / launches / 1e3 if us > 0 else None
+    best_n, best_us, best_by = 0, 0.0, {}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if prefix in e.key
+                  and e.device_type == torch.autograd.DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        if n > best_n:
+            best_n, best_us = n, _device_us(events)
+            best_by = {}
+            for e in events:
+                name = re.search(re.escape(prefix) + r"\w*", e.key).group(0)
+                best_by[name] = best_by.get(name, 0.0) + \
+                    _device_us([e]) / calls / 1e3
+    return ((best_us / calls / 1e3 if best_us > 0 else None), best_n / calls,
+            best_by)
 
 
 def flash_at_serving_shape(run: dict, dev) -> dict:
@@ -676,7 +758,7 @@ def flash_at_serving_shape(run: dict, dev) -> dict:
     if K == H and not window:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), reps=10, inner=10, warmup=3)
-    device_ms = kernel_device_ms_of(kernel, "flash_attention_kernel")
+    device_ms, per_call, _ = kernel_device_ms_of(kernel, "flash_attention_")
     i = torch.arange(S, device=dev)[:, None]
     j = torch.arange(S, device=dev)[None, :]
     vis = torch.ones((S, S), dtype=torch.bool, device=dev)
@@ -685,20 +767,21 @@ def flash_at_serving_shape(run: dict, dev) -> dict:
     if window:
         vis &= (i - j) < window
     pairs = B * H * int(vis.sum())
-    flops = pairs * 4 * hd
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * K * hd)
-    return bound_entry(ms, plain_ms, lib_ms, device_ms, flops, nbytes,
-                       [B, S, H, hd], err)
+    return bound_entry(ms, plain_ms, lib_ms, device_ms, per_call,
+                       pairs * 4 * hd, pairs * FLASH_SOFTMAX_FLOPS,
+                       pairs * 4 * hd, nbytes, [B, S, H, hd], err)
 
 
 def ssd_at_serving_shape(run: dict, dev) -> dict:
     """The SSD kernel on the inputs of the first Mamba block's scan of the
     served prefill: against its plain version (y and final state), then
     timed beside it.  No single PyTorch call computes the scan.  The bound
-    counts C.B^T once per (batch, chunk) over the causal half (it is shared
-    by the heads), then per head the weighting and the M x product over
-    the causal half, the inter-chunk term and the state update; bytes are
-    x, dt, A, B, C read once and y and the final state written once."""
+    counts the products C.B^T once per (batch, chunk) over the causal half
+    (it is shared by the heads), then per head M x over the causal half,
+    the inter-chunk term and the state update, and 2 flops per causal pair
+    and head for the weighting; bytes are x, dt, A, B, C read once and y
+    and the final state written once."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -725,34 +808,55 @@ def ssd_at_serving_shape(run: dict, dev) -> dict:
     lib = ops._library()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
+    work = ops.scratch(B, S, nh, hd, N, Q, dev)
+
     def kernel():
         lib.ssd_scan_launch(xh.data_ptr(), dt.data_ptr(), A.data_ptr(),
                             Bm.data_ptr(), Cm.data_ptr(),
                             init.data_ptr() if init is not None else None,
-                            y.data_ptr(), fin.data_ptr(), B, S, nh, hd, N, Q,
+                            y.data_ptr(), fin.data_ptr(),
+                            *(w.data_ptr() for w in work), B, S, nh, hd, N, Q,
                             stream)
     ms = cuda_ms(kernel, reps=10, inner=10, warmup=3)
     plain_ms = cuda_ms(lambda: ssd_chunked(xh, dt, A, Bm, Cm, chunk,
                                            initial_state=init),
                        reps=5, inner=2, warmup=1)
-    device_ms = kernel_device_ms_of(kernel, "ssd_scan_kernel")
+    device_ms, per_call, by_kernel = kernel_device_ms_of(kernel, "ssd_scan_")
+    log("[lm] ssd_scan device ms per call by CUDA kernel: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(by_kernel.items(),
+                                          key=lambda kv: -kv[1])))
     tri = Q * (Q + 1) // 2
-    flops = (B * NC * tri * 2 * N
-             + B * nh * NC * (tri * (2 * hd + 2) + 4 * Q * N * hd))
+    mma_flops = (B * NC * tri * 2 * N
+                 + B * nh * NC * (tri * 2 * hd + 4 * Q * N * hd))
     nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * N
                   + B * nh * hd * N * (2 if init is not None else 1))
-    return bound_entry(ms, plain_ms, None, device_ms, flops, nbytes,
-                       [B, S, nh, hd, N], errs[0][0])
+    weighting = B * nh * NC * tri * 2
+    entry = bound_entry(ms, plain_ms, None, device_ms, per_call, mma_flops,
+                        weighting, mma_flops + weighting, nbytes,
+                        [B, S, nh, hd, N], errs[0][0])
+    entry["device_ms_by_kernel"] = by_kernel
+    return entry
 
 
-def bound_entry(ms, plain_ms, lib_ms, device_ms, flops, nbytes, shape,
-                err) -> dict:
+def bound_entry(ms, plain_ms, lib_ms, device_ms, per_call, mma_flops,
+                other_flops, f32_flops, nbytes, shape, err) -> dict:
+    """Bounds of a kernel whose products (``mma_flops``) run in 3xTF32 on
+    the tensor cores and the rest (``other_flops``) on the CUDA cores:
+    ``bound_ms`` is the larger of the bytes over the memory rate and
+    3 * mma_flops / TF32_FLOPS + other_flops / F32_FLOPS;
+    ``bound_f32_cuda_core_ms`` counts ``f32_flops`` (every product and the
+    weighting, no softmax) at the CUDA-core rate, the bound of the design
+    it replaced."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
+    ops_ms = (3 * mma_flops / TF32_FLOPS + other_flops / F32_FLOPS) * 1e3
+    f32_ms = max(bytes_ms, f32_flops / F32_FLOPS * 1e3)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "device_ms": device_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "device_ms": device_ms, "cuda_launches_per_call": per_call,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "flops": flops, "bytes": nbytes, "timed_shape": shape,
+            "bound_f32_cuda_core_ms": f32_ms,
+            "flops": mma_flops + other_flops, "mma_flops": mma_flops,
+            "bytes": nbytes, "timed_shape": shape,
             "serving_max_abs_err": err}
 
 
@@ -850,7 +954,8 @@ def main() -> int:
         report = lib.with_suffix(".log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "Used" in line or "spill" in line:
+                if "Compiling entry" in line or "Used" in line or \
+                        "spill" in line:
                     log(f"[build] {src.name}: {line.strip()}")
 
     # 2. kernels against their plain versions
@@ -872,7 +977,8 @@ def main() -> int:
         f"{timing['shape']}: kernel {timing['ms']:.5f} ms, plain "
         f"{timing['plain_ms']:.5f} ms, bound {timing['bound_ms']:.6f} ms "
         f"({timing['bound_by']}, {timing['bytes']} bytes)")
-    timing["device_ms"] = kernel_device_ms(main3["flush_boxes"], dev)
+    timing["device_ms"], timing["cuda_launches_per_call"] = \
+        kernel_device_ms(main3["flush_boxes"], dev)
     log(f"[kernels] iou_matrix device time per launch (torch.profiler): "
         f"{timing['device_ms']} ms")
     for run, label in ((main3, "tab2"), (tab3, "tab3")):
@@ -887,9 +993,14 @@ def main() -> int:
     for name, t in (("flash_attention", flash_t), ("ssd_scan", ssd_t)):
         log(f"[kernels] {name} timed at the serving shape "
             f"{t['timed_shape']}: kernel {t['ms']:.4f} ms (device "
-            f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, library "
-            f"{t['library_ms']} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}: {t['flops']} flops, {t['bytes']} bytes)")
+            f"{t['device_ms']} ms over {t['cuda_launches_per_call']} CUDA "
+            f"kernels per call), "
+            f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']} ms, "
+            f"bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['mma_flops']} "
+            f"3xTF32 + {t['flops'] - t['mma_flops']} other flops, "
+            f"{t['bytes']} bytes), f32 CUDA-core bound "
+            f"{t['bound_f32_cuda_core_ms']:.4f} ms")
     for key in ("flash_args", "ssd_args", "breakdown"):
         lm.pop(key)
     torch.cuda.empty_cache()
@@ -916,6 +1027,8 @@ def main() -> int:
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None,
         "device_ms": timing["device_ms"], "timed_shape": timing["shape"],
+        "cuda_launches_per_call": timing["cuda_launches_per_call"],
+        "bound_f32_cuda_core_ms": timing["bound_ms"],   # no tensor cores
     }]
     for name, t, err in (
             ("flash_attention", flash_t, lmk["flash_max_abs_err"]),
@@ -935,7 +1048,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "timed_shape": t["timed_shape"],
+            "cuda_launches_per_call": t["cuda_launches_per_call"],
+            "bound_f32_cuda_core_ms": t["bound_f32_cuda_core_ms"],
         })
+        if "device_ms_by_kernel" in t:
+            kernels[-1]["device_ms_by_kernel"] = t["device_ms_by_kernel"]
     log(f"[lm] summary: {json.dumps({k: v for k, v in lm.items() if k not in ('flash_kwargs', 'ssd_kwargs')})} "
         f"card-vs-cpu logits max_abs_err {cmp['max_abs_err']:.3g}")
     print(json.dumps({"kernels": kernels}))

@@ -17,6 +17,9 @@ equality with the numpy reference, and a contracted ``a*b+c`` (one FMA,
 one rounding) differs from numpy's two roundings.  The flash-attention and
 SSD kernels are held to their plain versions within a float32 tolerance,
 so nvcc may contract their products into FMAs, as their speed needs.
+
+Every source may include the shared headers of ``include/`` (the 3xTF32
+mma and cp.async helpers); a library's key covers those headers too.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "iou_matrix.cu": ("--fmad=false",),
 }
+
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -63,7 +68,9 @@ def nvcc_flags(source: Path) -> Tuple[str, ...]:
 
 
 def library_path(source: Path) -> Path:
-    key = hashlib.sha256(Path(source).read_bytes()
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(INCLUDE_DIR.glob("*.cuh")))
+    key = hashlib.sha256(Path(source).read_bytes() + headers
                          + " ".join(nvcc_flags(source)).encode()
                          ).hexdigest()[:16]
     return build_dir() / f"{Path(source).stem}-{key}.so"
@@ -85,7 +92,8 @@ def build_all(sources: Sequence[Path]) -> Dict[Path, Path]:
     for src, lib in todo.items():
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         procs[src] = (subprocess.Popen(
-            [nvcc, *nvcc_flags(src), "-o", str(tmp), str(src)],
+            [nvcc, *nvcc_flags(src), "-I", str(INCLUDE_DIR), "-o", str(tmp),
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, lib)
     failed = []

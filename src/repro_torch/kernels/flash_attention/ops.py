@@ -9,7 +9,9 @@ set, i - j < window.
 A CUDA tensor goes through the kernel or raises: there is no fallback.  A
 CPU tensor goes through the plain version (``ref.flash_attention_torch``),
 and only because it lies on the CPU.  Both paths check dtype (float32),
-shapes and contiguity first.  ``LAUNCHES`` counts kernel launches.
+shapes and contiguity first.  ``LAUNCHES`` counts kernel launches (one
+CUDA kernel per call: 3xTF32 products on the tensor cores, see
+``csrc/flash_attention.cu``).
 """
 from __future__ import annotations
 
@@ -88,7 +90,8 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
         return out
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
+                             f"copies)")
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(

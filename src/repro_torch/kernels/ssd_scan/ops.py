@@ -10,7 +10,10 @@ zeros when None.
 A CUDA tensor goes through the kernel or raises: there is no fallback.  A
 CPU tensor goes through the plain version (``ref.ssd_chunked``), and only
 because it lies on the CPU.  Both paths check dtype, shapes and
-contiguity first.  ``LAUNCHES`` counts kernel launches.
+contiguity first.  ``LAUNCHES`` counts calls that reached the kernel (one
+per ``ssd_scan`` call); each such call launches five CUDA kernels in order
+(cumsum, C.B^T, chunk states, state passing, output), whose scratch
+buffers ``scratch`` allocates here.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 1024
+TILE = 64                       # row tile of the kernels (C.B^T pitch)
 
 LAUNCHES = 0
 _LIB = None
@@ -44,7 +48,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load(SOURCE)
         lib.ssd_scan_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.ssd_scan_launch.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -88,6 +92,22 @@ def _check(xh, dt, A, Bmat, Cmat, chunk, initial_state) -> int:
     return Q
 
 
+def scratch(B: int, S: int, nh: int, hd: int, N: int, Q: int,
+            device) -> Tuple[torch.Tensor, ...]:
+    """The kernels' scratch: the chunk cumsum of dt*A and dt, both
+    ``(B, nh, S)``; C.B^T per (batch, chunk), ``(B, S/Q, Qp, Qp)`` with ``Qp``
+    the chunk rounded up to the 64-row tile; the chunk states
+    ``(B, S/Q, nh, hd, N)``, overwritten in place by the state each chunk
+    starts from."""
+    NC = S // Q
+    Qp = -(-Q // TILE) * TILE
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return (empty(B, nh, S), empty(B, nh, S), empty(B, NC, Qp, Qp),
+            empty(B, NC, nh, hd, N))
+
+
 def _launch(xh, dt, A, Bmat, Cmat, Q, initial_state):
     global LAUNCHES
     B, S, nh, hd = xh.shape
@@ -113,14 +133,17 @@ def _launch(xh, dt, A, Bmat, Cmat, Q, initial_state):
         tensors.append((initial_state, "initial_state"))
     for t, name in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
+                             f"copies)")
     lib = _library()
+    work = scratch(B, S, nh, hd, N, Q, xh.device)
     with torch.cuda.device(xh.device):
         err = lib.ssd_scan_launch(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
             Cmat.data_ptr(),
             initial_state.data_ptr() if initial_state is not None else None,
-            y.data_ptr(), final.data_ptr(), B, S, nh, hd, N, Q,
+            y.data_ptr(), final.data_ptr(), *(w.data_ptr() for w in work),
+            B, S, nh, hd, N, Q,
             torch.cuda.current_stream(xh.device).cuda_stream)
     if err:
         msg = lib.ssd_scan_error_string(err)

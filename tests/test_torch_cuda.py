@@ -86,14 +86,13 @@ def qkv(rng, B, S, H, K, hd, dev):
     return t(B, S, H, hd), t(B, S, K, hd), t(B, S, K, hd)
 
 
-@pytest.mark.parametrize("S,H,K,hd,causal,window", [
-    (1, 2, 2, 64, True, 0), (7, 4, 2, 80, True, 0), (33, 4, 4, 64, False, 0),
-    (130, 4, 1, 80, True, 8), (1000, 2, 2, 80, True, 64),
-    (257, 2, 2, 128, False, 0)])
-def test_flash_kernel_matches_plain(dev, S, H, K, hd, causal, window):
+FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # ops.KERNEL_HEAD_DIMS
+
+
+def flash_case(dev, S, H, K, hd, causal, window, seed):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
-    q, k, v = qkv(np.random.default_rng(S), 2, S, H, K, hd, dev)
+    q, k, v = qkv(np.random.default_rng(seed), 2, S, H, K, hd, dev)
     before = ops.LAUNCHES
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -101,6 +100,58 @@ def test_flash_kernel_matches_plain(dev, S, H, K, hd, causal, window):
     want = flash_attention_torch(q, k, v, causal=causal, window=window)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= FLASH_ATOL
+
+
+@pytest.mark.parametrize("S,H,K,hd,causal,window", [
+    (1, 2, 2, 64, True, 0), (7, 4, 2, 80, True, 0), (33, 4, 4, 64, False, 0),
+    (130, 4, 1, 80, True, 8), (1000, 2, 2, 80, True, 64),
+    (257, 2, 2, 128, False, 0)])
+def test_flash_kernel_matches_plain(dev, S, H, K, hd, causal, window):
+    flash_case(dev, S, H, K, hd, causal, window, seed=S)
+
+
+@pytest.mark.parametrize("hd", FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+def test_flash_kernel_every_head_dim(dev, hd, causal, window):
+    """Every instantiated head dim; 129 rows end one row past a 128-row
+    query tile; a window of 40 ends inside a 32-key KV tile."""
+    flash_case(dev, 129, 4, 2, hd, causal, window, seed=hd)
+
+
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 129])
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 23),
+                                           (False, 9)])
+def test_flash_kernel_tiles_straddling_the_diagonal(dev, S, hd, causal,
+                                                    window):
+    """Query tiles and 8-key mma slices on either side of a tile edge,
+    with K < H and windows that end inside a tile."""
+    flash_case(dev, S, 6, 2, hd, causal, window, seed=S + hd)
+
+
+def test_flash_kernel_long_run_of_equal_keys(dev):
+    """A left-padded prompt: 1000 equal q/k/v rows, then 24 random ones.
+    Near-equal weights on equal values over ~1000 keys is where a sum kept
+    in the tensor core's accumulator drifts past the tolerance, unless the
+    kernel adds each 32-key partial to its output in f32.  The oracle is
+    the plain version in float64: in float32 on the card it is itself off
+    by more than the tolerance here."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    q, k, v = qkv(np.random.default_rng(5), 2, 1024, 4, 4, 80, dev)
+    for t in (q, k, v):
+        t[:, :1000] = t[:, :1] * 2.0
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = flash_attention_torch(q.double(), k.double(), v.double(),
+                                 causal=True)
+    assert float((got.double() - want).abs().max()) <= FLASH_ATOL
+
+
+def test_flash_kernel_matches_plain_at_the_serving_shape(dev):
+    """Zamba2-2.7B's shared attention: (1, 1024, 32, 80) causal (batch cut
+    to 1 to keep the plain version small)."""
+    flash_case(dev, 1024, 32, 32, 80, True, 0, seed=7)
 
 
 def ssd_inputs(rng, B, S, nh, hd, N, dev, init):
@@ -115,13 +166,10 @@ def ssd_inputs(rng, B, S, nh, hd, N, dev, init):
     return x, dt, A, Bm, Cm, st
 
 
-@pytest.mark.parametrize("S,chunk,hd,N,init", [
-    (8, 8, 64, 16, False), (128, 32, 32, 16, True), (1024, 256, 64, 64, False),
-    (256, 256, 64, 128, True), (96, 32, 16, 32, False)])
-def test_ssd_kernel_matches_plain(dev, S, chunk, hd, N, init):
+def ssd_case(dev, S, chunk, hd, N, init, seed):
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-    args = ssd_inputs(np.random.default_rng(S + N), 2, S, 3, hd, N, dev,
+    args = ssd_inputs(np.random.default_rng(seed), 2, S, 3, hd, N, dev,
                       init)
     before = ops.LAUNCHES
     y, fin = ops.ssd_scan(*args[:5], chunk, initial_state=args[5])
@@ -132,6 +180,66 @@ def test_ssd_kernel_matches_plain(dev, S, chunk, hd, N, init):
         assert torch.isfinite(got).all()
         assert float((got - want).abs().max()) <= \
             SSD_RTOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("S,chunk,hd,N,init", [
+    (8, 8, 64, 16, False), (128, 32, 32, 16, True), (1024, 256, 64, 64, False),
+    (256, 256, 64, 128, True), (96, 32, 16, 32, False)])
+def test_ssd_kernel_matches_plain(dev, S, chunk, hd, N, init):
+    ssd_case(dev, S, chunk, hd, N, init, seed=S + N)
+
+
+SSD_DIMS = (16, 32, 64, 128)   # ops.KERNEL_HEAD_DIMS, KERNEL_STATE_DIMS
+
+
+@pytest.mark.parametrize("hd", SSD_DIMS)
+@pytest.mark.parametrize("N", SSD_DIMS)
+@pytest.mark.parametrize("chunk", [64, 96, 256])
+def test_ssd_kernel_every_instantiation(dev, hd, N, chunk):
+    """Every (hd, N) pair the kernels are built for, one chunk and three
+    (chunks in parallel, the state passed between them), with and without
+    an initial state; Q = 96 ends inside a second 64-row tile."""
+    for NC in (1, 3):
+        for init in (False, True):
+            ssd_case(dev, chunk * NC, chunk, hd, N, init,
+                     seed=hd + N + chunk + NC)
+
+
+def ssd_recurrence_f64(x, dt, A, Bm, Cm):
+    """The SSM step by step in float64: h <- exp(dt A) h + dt x (x) B,
+    y = h . C; the function the chunked scan computes, summed in another
+    order and another precision."""
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    B, S, nh, hd = x.shape
+    h = x.new_zeros((B, nh, hd, Bm.shape[-1]))
+    ys = []
+    for s in range(S):
+        h = torch.exp(dt[:, s] * A)[:, :, None, None] * h + \
+            (dt[:, s, :, None] * x[:, s])[..., None] * Bm[:, s, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, s]))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("chunk", [256, 1024])
+def test_ssd_kernel_long_run_of_equal_rows(dev, chunk):
+    """A left-padded prompt: 1000 equal rows of x, B, C and dt, then 24
+    random ones, with a slow decay (dt*A ~ -1e-3 a step) so that ~1000
+    terms of one sign add up in the chunk states and outputs.  That is
+    where a sum kept in the tensor core's accumulator over a whole chunk
+    drifts, unless each 64-column tile is summed afresh and added in f32;
+    held to a tenth of the tolerance, which one accumulator over the chunk
+    misses here.  The oracle is the recurrence in float64."""
+    from repro_torch.kernels.ssd_scan import ops
+    x, dt, A, Bm, Cm, _ = ssd_inputs(np.random.default_rng(11), 2, 1024, 3,
+                                     64, 64, dev, False)
+    for t in (x, Bm, Cm):
+        t[:, :1000] = t[:, :1]
+    dt[:, :1000] = 0.002
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    wy, wf = ssd_recurrence_f64(x, dt, A, Bm, Cm)
+    for got, want in ((y, wy), (fin, wf)):
+        assert float((got.double() - want).abs().max()) <= \
+            SSD_RTOL / 10 * float(want.abs().max())
 
 
 def test_lm_kernels_reject_what_they_do_not_take(dev):
