@@ -10,9 +10,11 @@ Phases, each fatal on failure (no result line is printed then):
                each entry function's ptxas registers, shared memory and
                spills;
   2. kernels — hold each kernel against its plain PyTorch version on the
-               card: the IoU kernel with ``torch.equal`` (bit equality),
-               flash attention and the SSD scan within stated float32
-               tolerances, on crafted edge cases and ragged shapes;
+               card: the IoU kernel with ``torch.equal`` (bit equality) on
+               dense pairs and packed ragged batches (empty images, a
+               cross batch, a 1000 x 1000 image), flash attention and the
+               SSD scan within stated float32 tolerances, on crafted edge
+               cases and ragged shapes;
   3. serve   — Armol's federation service at real size: 5000 trace images
                (the COCO val2017 size the traces model), the N=3 roster of
                Tab. II, a full-width SAC actor (hidden 256x256), four
@@ -125,37 +127,74 @@ def half_iou_boxes(n: int):
 # phase 2: the IoU kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def ragged_boxes(rng, lengths, dev):
+    """Random boxes of images with ``lengths`` boxes, packed on ``dev``:
+    (sum, 4) float32 and the (B + 1,) int64 offsets."""
+    import numpy as np
+    import torch
+    off = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=off[1:])
+    boxes = rand_boxes(rng, (int(off[-1]),))
+    return torch.from_numpy(boxes).to(dev), torch.from_numpy(off).to(dev)
+
+
 def check_iou_kernel(dev) -> dict:
+    """Every IoU case through the kernel and its plain version on the
+    card and on the CPU, with ``torch.equal``: dense pairs and a dense
+    batch through ``iou_matrix_op``/``iou_matrix_batched``, packed ragged
+    batches (empty images at both ends, a cross batch with m_i != n_i)
+    through ``iou_matrix_ragged``."""
     import numpy as np
     import torch
     from repro_torch.kernels.iou_matrix import ops
-    from repro_torch.kernels.iou_matrix.ref import iou_matrix_torch
+    from repro_torch.kernels.iou_matrix.ref import (iou_matrix_ragged_torch,
+                                                    iou_matrix_torch)
 
     rng = np.random.default_rng(0)
-    cases = []
+    cases = []   # (name, kernel call, plain version, its inputs)
+
+    def dense(name, a, b):
+        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        call = ops.iou_matrix_batched if ta.dim() == 3 else ops.iou_matrix_op
+        cases.append((name, call, iou_matrix_torch, (ta, tb)))
+
     for m, n in [(1, 1), (7, 5), (33, 129), (130, 515), (1000, 1000)]:
-        cases.append((f"{m}x{n}", rand_boxes(rng, (m,)),
-                      rand_boxes(rng, (n,))))
+        dense(f"{m}x{n}", rand_boxes(rng, (m,)), rand_boxes(rng, (n,)))
     a, b = half_iou_boxes(4099)
-    cases.append(("iou~0.5+zero", a, b))
+    dense("iou~0.5+zero", a, b)
     padded = rand_boxes(rng, (5000, 16))
     for i, k in enumerate(rng.integers(1, 17, 5000)):
         padded[i, k:] = 0.0                        # ragged images, padded
-    cases.append(("batch5000x16", padded, padded))
+    dense("batch5000x16", padded, padded)
+
+    lengths = rng.integers(0, 65, 5000)
+    lengths[:3] = lengths[-3:] = 0                 # empty at both ends
+    x, off = ragged_boxes(rng, lengths, dev)
+    cases.append(("ragged5000x0-64 self", ops.iou_matrix_ragged,
+                  iou_matrix_ragged_torch, (x, x, off, off)))
+    m, n = rng.integers(0, 41, 300), rng.integers(0, 71, 300)
+    m[0] = n[-1] = 0
+    a, a_off = ragged_boxes(rng, m, dev)
+    b, b_off = ragged_boxes(rng, n, dev)
+    cases.append(("ragged300 cross", ops.iou_matrix_ragged,
+                  iou_matrix_ragged_torch, (a, b, a_off, b_off)))
+    a, b = half_iou_boxes(2000)        # pair j at IoU ~0.5: a[j], b[j]
+    a_off = torch.tensor([0, 0, 1000, 1500, 2000], device=dev)
+    b_off = torch.tensor([0, 5, 1005, 1005, 1505], device=dev)
+    b = np.concatenate([b[-5:], b[:1000], b[1500:]])
+    cases.append(("ragged iou~0.5 cross with empties", ops.iou_matrix_ragged,
+                  iou_matrix_ragged_torch,
+                  (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+                   a_off, b_off)))
 
     mismatches, max_err = 0, 0.0
-    for name, a, b in cases:
-        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-        if ta.dim() == 3:
-            got = ops.iou_matrix_batched(ta, tb)
-        else:
-            got = ops.iou_matrix_op(ta, tb)
-        want = iou_matrix_torch(ta, tb)
+    for name, call, plain, args in cases:
+        got = call(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         err = float((got - want).abs().max()) if got.numel() else 0.0
-        cpu_equal = torch.equal(got.cpu(), iou_matrix_torch(ta.cpu(),
-                                                              tb.cpu()))
+        cpu_equal = torch.equal(got.cpu(), plain(*(t.cpu() for t in args)))
         log(f"[kernels] iou_matrix {name}: shape {tuple(got.shape)} "
             f"mismatches={bad} max_abs_err={err} cpu_equal={cpu_equal}")
         if bad or not cpu_equal or not torch.isfinite(got).all():
@@ -166,69 +205,120 @@ def check_iou_kernel(dev) -> dict:
     return {"mismatches": mismatches, "max_abs_err": max_err}
 
 
-def padded_batch(boxes_list, dev):
-    """(B, nmax, 4) float32 on ``dev``, zero rows past each image's boxes
-    (the layout ``batch_iou_matrices`` gives the kernel)."""
-    import numpy as np
+def iou_launcher(boxes_list, dev, per_thread=None):
+    """A call of the kernel's C entry on one flush's packed batch, with
+    its output allocated once (so the time is the launch's alone), at the
+    wrapper's outputs per thread unless ``per_thread`` is given."""
     import torch
-    nmax = max(len(b) for b in boxes_list)
-    padded = np.zeros((len(boxes_list), nmax, 4), np.float32)
-    for i, b in enumerate(boxes_list):
-        padded[i, :len(b)] = b
-    return torch.from_numpy(padded).to(dev)
+    from repro_torch.kernels.iou_matrix import ops
+    x, offs, host = ops.pack_ragged(boxes_list, dev)
+    off, out_off, total = offs[0], offs[1], int(host[1, -1])
+    out = torch.empty((total,), dtype=torch.float32, device=dev)
+    lib, stream = ops._library(), torch.cuda.current_stream(dev).cuda_stream
+    k = (ops.per_thread(total, ops._sm_count(dev)) if per_thread is None
+         else per_thread)
+
+    def kernel():
+        if lib.iou_matrix_ragged_launch(
+                x.data_ptr(), x.data_ptr(), off.data_ptr(), off.data_ptr(),
+                out_off.data_ptr(), out.data_ptr(), len(boxes_list), total, k,
+                stream):
+            raise RuntimeError("iou_matrix_ragged_launch failed")
+    return kernel, out, (x, x, off, off, out_off, total), k
 
 
 def time_iou_kernel(boxes_list, dev) -> dict:
-    """Kernel vs plain version on the padded batch one serving flush
-    gives the kernel; the bound counts this batch's bytes and flops."""
+    """Kernel vs plain version on the packed batch one serving flush
+    gives the kernel.  The bound counts what this self-IoU batch needs:
+    the boxes once (a and b are one buffer), each table once, and the two
+    distinct offset arrays (a_off and b_off are one).  Beside it, the
+    bytes the bound of the padded layout counted (every image padded to
+    the largest, the boxes as a and as b), for continuity."""
     import torch
-    from repro_torch.kernels.iou_matrix import ops
-    from repro_torch.kernels.iou_matrix.ref import iou_matrix_torch
+    from repro_torch.kernels.iou_matrix.ref import iou_matrix_ragged_torch
 
-    x = padded_batch(boxes_list, dev)
-    B, n = x.shape[0], x.shape[1]
-    out = torch.empty((B, n, n), dtype=torch.float32, device=dev)
-    lib = ops._library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def kernel():
-        lib.iou_matrix_launch(x.data_ptr(), x.data_ptr(), out.data_ptr(),
-                              B, n, n, stream)
-
+    kernel, out, args, k = iou_launcher(boxes_list, dev)
     kernel()
     torch.cuda.synchronize()
-    if not torch.equal(out, iou_matrix_torch(x, x)):
+    if not torch.equal(out, iou_matrix_ragged_torch(*args)):
         raise AssertionError("timed kernel output disagrees")
     ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(lambda: iou_matrix_torch(x, x))
-    nbytes = B * (2 * n * 16 + n * n * 4)
+    plain_ms = cuda_ms(lambda: iou_matrix_ragged_torch(*args))
+    lengths = [len(b) for b in boxes_list]
+    B, nmax, total = len(lengths), max(lengths), args[-1]
+    nbytes = 16 * sum(lengths) + 4 * total + 2 * 8 * (B + 1)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = B * n * n * IOU_FLOPS_PER_PAIR / F32_FLOPS * 1e3
-    return {"shape": [B, n, 4], "ms": ms, "plain_ms": plain_ms,
+    ops_ms = total * IOU_FLOPS_PER_PAIR / F32_FLOPS * 1e3
+    padded_bytes = B * (2 * nmax * 16 + nmax * nmax * 4)
+    return {"shape": [B, nmax, total], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes}
+            "bytes": nbytes, "padded_bytes": padded_bytes,
+            "padded_bound_ms": padded_bytes / HBM_BYTES_PER_S * 1e3,
+            "per_thread": k}
+
+
+def batch_host_ms(boxes_list, dev, reps: int = 50) -> float:
+    """Median host time (ms) of ``batch_iou_matrices`` on one flush's
+    boxes: pack, copy over, launch, copy back, split (it ends in a
+    device-to-host copy, so the clock stops after the device)."""
+    import torch
+    from repro_torch.kernels.iou_matrix import ops
+    for _ in range(3):
+        ops.batch_iou_matrices(boxes_list, dev)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.batch_iou_matrices(boxes_list, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
 # phase 3: serving at real size
 # ---------------------------------------------------------------------------
 
-def serve_pass(providers, n_images: int, flushes: int, flush: int,
-               singles: int, dev, label: str) -> dict:
+# The serving passes: roster, trace images, flushes of FLUSH requests.
+SERVE_PASSES = {"tab2": ("default_providers", 5000, 4),
+                "tab3": ("scalability_providers", 1000, 1)}
+FLUSH, SINGLES = 1024, 16
+
+
+def serve_traffic(label: str):
+    """The traces and seeded requests of serving pass ``label``: the
+    traces, the flushed image ids, the single ones, and the boxes of the
+    first flush's distinct images (what its IoU precompute packs)."""
+    import numpy as np
+    from repro_torch.federation import providers as roster
+    from repro_torch.federation.traces import generate_traces
+    make, n_images, flushes = SERVE_PASSES[label]
+    traces = generate_traces(getattr(roster, make)(), n_images, seed=0)
+    rng = np.random.default_rng(0)
+    reqs = rng.integers(0, n_images, flushes * FLUSH)
+    single = rng.integers(0, n_images, SINGLES)
+    first = dict.fromkeys(int(i) for i in reqs[:FLUSH])
+    boxes = [np.concatenate([d.boxes for d in traces.dets[i]], axis=0)
+             for i in first]
+    return traces, reqs, single, boxes
+
+
+def serve_pass(label: str, dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.sac import SAC, SACConfig
     from repro_torch.federation.env import ArmolEnv
     from repro_torch.federation.evaluation import SubsetEvaluationCore
-    from repro_torch.federation.traces import generate_traces
     from repro_torch.kernels.iou_matrix import ops
     from repro_torch.kernels.iou_matrix.ref import iou_matrix_torch
     from repro_torch.serving.federation_service import FederationService
 
     phases = {}
     t0 = time.perf_counter()
-    traces = generate_traces(providers, n_images, seed=0)
+    traces, reqs, single, flush_boxes = serve_traffic(label)
+    _, n_images, flushes = SERVE_PASSES[label]
+    flush, singles = FLUSH, SINGLES
     phases["traces_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     env = ArmolEnv(traces, mode="gt", beta=0.0, seed=1, device=dev)
@@ -238,10 +328,6 @@ def serve_pass(providers, n_images: int, flushes: int, flush: int,
                     hidden=(256, 256), seed=0)
     agent = SAC(cfg, device=dev)
     svc = FederationService(env, agent)
-    rng = np.random.default_rng(0)
-    reqs = rng.integers(0, n_images, flushes * flush)
-    single = rng.integers(0, n_images, singles)
-    first_flush = list(dict.fromkeys(int(i) for i in reqs[:flush]))
 
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -305,10 +391,8 @@ def serve_pass(providers, n_images: int, flushes: int, flush: int,
     log(f"[serve:{label}] checked {len(tables)} IoU tables, "
         f"{len(served)} ensembles and protos (max proto err {proto_err}) "
         f"against the CPU in {phases['checks_s']:.2f}s")
-    boxes_list = [np.concatenate([d.boxes for d in traces.dets[i]], axis=0)
-                  for i in first_flush]
     return {"launches": launches, "rps": rps, "phases": phases,
-            "flush_boxes": boxes_list, "svc": svc, "traces": traces,
+            "flush_boxes": flush_boxes, "svc": svc, "traces": traces,
             "first_reqs": [int(i) for i in reqs[:flush]]}
 
 
@@ -323,7 +407,7 @@ def _device_us(events) -> float:
 
 def flush_breakdown(run: dict, dev) -> dict:
     """Where one cold 1024-request flush spends its time: the actor
-    forward, the IoU precompute (pad, copy, one launch, copy back) and the
+    forward, the IoU precompute (pack, copy, one launch, copy back) and the
     per-request ensemble accounting on the host, by host clock around
     synchronised steps; then the same flush under ``torch.profiler`` for
     the device's busy time.  Runs on a fresh (cold) core after the main
@@ -367,21 +451,14 @@ def flush_breakdown(run: dict, dev) -> dict:
     return out
 
 
-def kernel_device_ms(boxes_list, dev, launches: int = 200):
-    """Device time per launch of the IoU kernel on one flush's padded
+def kernel_device_ms(boxes_list, dev, launches: int = 200,
+                     per_thread=None):
+    """Device time per launch of the IoU kernel on one flush's packed
     batch, read from ``torch.profiler`` (None where it sees no device
     time), and the CUDA kernels per launch."""
-    import torch
-    from repro_torch.kernels.iou_matrix import ops
-
-    x = padded_batch(boxes_list, dev)
-    B, n = x.shape[0], x.shape[1]
-    out = torch.empty((B, n, n), dtype=torch.float32, device=dev)
-    lib, stream = ops._library(), torch.cuda.current_stream(dev).cuda_stream
     device_ms, per_call, _ = kernel_device_ms_of(
-        lambda: lib.iou_matrix_launch(x.data_ptr(), x.data_ptr(),
-                                      out.data_ptr(), B, n, n, stream),
-        "iou_matrix_kernel", launches)
+        iou_launcher(boxes_list, dev, per_thread)[0], "iou_matrix_ragged",
+        launches)
     return device_ms, per_call
 
 
@@ -966,21 +1043,28 @@ def main() -> int:
         f"{json.dumps(lmk)}")
 
     # 3. serve at real size
-    from repro_torch.federation.providers import (default_providers,
-                                                  scalability_providers)
-    main3 = serve_pass(default_providers(), 5000, flushes=4, flush=1024,
-                       singles=16, dev=dev, label="tab2")
-    tab3 = serve_pass(scalability_providers(), 1000, flushes=1, flush=1024,
-                      singles=16, dev=dev, label="tab3")
-    timing = time_iou_kernel(main3["flush_boxes"], dev)
-    log(f"[kernels] iou_matrix timed on the first flush's batch "
-        f"{timing['shape']}: kernel {timing['ms']:.5f} ms, plain "
-        f"{timing['plain_ms']:.5f} ms, bound {timing['bound_ms']:.6f} ms "
-        f"({timing['bound_by']}, {timing['bytes']} bytes)")
-    timing["device_ms"], timing["cuda_launches_per_call"] = \
-        kernel_device_ms(main3["flush_boxes"], dev)
-    log(f"[kernels] iou_matrix device time per launch (torch.profiler): "
-        f"{timing['device_ms']} ms")
+    main3 = serve_pass("tab2", dev)
+    tab3 = serve_pass("tab3", dev)
+    timing = {}
+    for run, label in ((main3, "tab2"), (tab3, "tab3")):
+        t = timing[label] = time_iou_kernel(run["flush_boxes"], dev)
+        t["device_ms"], t["cuda_launches_per_call"] = \
+            kernel_device_ms(run["flush_boxes"], dev)
+        t["batch_host_ms"] = batch_host_ms(run["flush_boxes"], dev)
+        log(f"[kernels] iou_matrix timed on the first {label} flush's packed "
+            f"batch (images, nmax, outputs) {t['shape']}, "
+            f"{t['per_thread']} outputs per thread: kernel {t['ms']:.5f} ms, "
+            f"device {t['device_ms']} ms (torch.profiler), plain "
+            f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}, {t['bytes']} ragged bytes; the padded "
+            f"layout's bound counted {t['padded_bytes']} bytes, "
+            f"{t['padded_bound_ms']:.6f} ms), "
+            f"batch_iou_matrices host {t['batch_host_ms']:.4f} ms")
+    import numpy as np
+    launch_floor_ms = kernel_device_ms(
+        [rand_boxes(np.random.default_rng(1), (1,))], dev)[0]
+    log(f"[kernels] iou_matrix device ms of a one-output launch "
+        f"{launch_floor_ms}")
     for run, label in ((main3, "tab2"), (tab3, "tab3")):
         log(f"[breakdown:{label}] one cold 1024-request flush: "
             f"{json.dumps(flush_breakdown(run, dev))}")
@@ -1023,12 +1107,20 @@ def main() -> int:
         "launches_tab3": tab3["launches"],
         "mismatches": iou["mismatches"],
         "max_abs_err": iou["max_abs_err"],
-        "ms": timing["ms"], "kernel_ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": None,
-        "device_ms": timing["device_ms"], "timed_shape": timing["shape"],
-        "cuda_launches_per_call": timing["cuda_launches_per_call"],
-        "bound_f32_cuda_core_ms": timing["bound_ms"],   # no tensor cores
+        "ms": timing["tab2"]["ms"], "plain_ms": timing["tab2"]["plain_ms"],
+        "bound_ms": timing["tab2"]["bound_ms"],
+        "bound_by": timing["tab2"]["bound_by"], "library_ms": None,
+        "device_ms": timing["tab2"]["device_ms"],
+        "timed_shape": timing["tab2"]["shape"],
+        "cuda_launches_per_call": timing["tab2"]["cuda_launches_per_call"],
+        "bytes": timing["tab2"]["bytes"],
+        "batch_host_ms": timing["tab2"]["batch_host_ms"],
+        **{f"{k}_tab3": timing["tab3"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "bytes",
+            "batch_host_ms")},
+        "timed_shape_tab3": timing["tab3"]["shape"],
+        "device_ms_one_output": launch_floor_ms,
+        "bound_f32_cuda_core_ms": timing["tab2"]["bound_ms"],  # CUDA cores
     }]
     for name, t, err in (
             ("flash_attention", flash_t, lmk["flash_max_abs_err"]),

@@ -125,10 +125,10 @@ def batch_iou_matrices(boxes_list: Sequence[np.ndarray], *,
                        device: DeviceLike = None) -> List[np.ndarray]:
     """Pairwise self-IoU for a batch of images in one launch.
 
-    Kernel path pads every image's boxes to the batch max and runs one
-    batched CUDA launch (``kernels.iou_matrix.ops.batch_iou_matrices``);
-    the CPU path computes per image with numpy (padding would cost more
-    than it saves there).
+    Kernel path packs every image's boxes one after another (no padding)
+    and runs one CUDA launch over the ragged batch
+    (``kernels.iou_matrix.ops.batch_iou_matrices``); the CPU path computes
+    per image with numpy.
     """
     if not boxes_list:
         return []

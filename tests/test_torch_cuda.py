@@ -54,6 +54,65 @@ def test_padded_batch_kernel_equals_per_image(dev):
         np.testing.assert_array_equal(g, want)
 
 
+def ragged(rng, lengths, dev):
+    lists = [boxes(rng, (int(k),)) for k in lengths]
+    off = np.zeros(len(lists) + 1, np.int64)
+    np.cumsum([len(b) for b in lists], out=off[1:])
+    return (torch.from_numpy(np.concatenate(lists)).to(dev),
+            torch.from_numpy(off).to(dev))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ragged_kernel_equals_plain_with_empty_images(dev, seed):
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.kernels.iou_matrix.ref import iou_matrix_ragged_torch
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, 70, 2000)
+    n = rng.integers(0, 70, 2000)
+    m[:5] = n[-5:] = 0                     # empty images at both ends
+    m[700:900] = 0                         # and a run of them inside
+    a, a_off = ragged(rng, m, dev)
+    b, b_off = ragged(rng, n, dev)
+    before = ops.LAUNCHES
+    got = ops.iou_matrix_ragged(a, b, a_off, b_off)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    assert got.shape == (int((m * n).sum()),)
+    assert torch.equal(got, iou_matrix_ragged_torch(a, b, a_off, b_off))
+    # self-IoU with the same buffer and offsets as a and b
+    self_iou = ops.iou_matrix_ragged(a, a, a_off, a_off)
+    assert torch.equal(self_iou,
+                       iou_matrix_ragged_torch(a, a, a_off, a_off))
+
+
+def test_ragged_kernel_one_large_cross_image(dev):
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.kernels.iou_matrix.ref import iou_matrix_ragged_torch
+    rng = np.random.default_rng(9)
+    a, a_off = ragged(rng, [1000], dev)
+    b, b_off = ragged(rng, [1000], dev)
+    got = ops.iou_matrix_ragged(a, b, a_off, b_off)
+    assert torch.equal(got, iou_matrix_ragged_torch(a, b, a_off, b_off))
+    assert torch.equal(got.view(1000, 1000).cpu(),
+                       ops.iou_matrix_op(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (21, 21), (56, 40), (0, 7),
+                                 (7, 0)])
+def test_numpy_wrapper_on_the_card(dev, m, n):
+    """The single-image serving path: one packed copy, one launch."""
+    from repro_torch.ensemble.boxes import iou_matrix
+    from repro_torch.kernels.iou_matrix import ops
+    rng = np.random.default_rng(m * 100 + n)
+    a, b = boxes(rng, (m,)), boxes(rng, (n,))
+    before = ops.LAUNCHES
+    got = ops.iou_matrix_numpy(a, b, dev)
+    assert ops.LAUNCHES == before + (1 if m * n else 0)
+    assert got.shape == (m, n)
+    if m * n:
+        np.testing.assert_array_equal(got, iou_matrix(a, b))
+
+
 def test_kernel_rejects_what_it_does_not_take(dev):
     from repro_torch.kernels.iou_matrix import ops
     a = torch.rand(8, 4, device=dev)

@@ -134,6 +134,7 @@ def _pretend_cuda(monkeypatch):
     monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
     monkeypatch.setattr(ops, "_current_stream", lambda device: 0)
     monkeypatch.setattr(ops, "_on_device", lambda device: _Null())
+    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
 
 
 class _Null:
@@ -160,7 +161,7 @@ def test_kernel_path_propagates_launch_errors(monkeypatch):
     class FailingLib:
         launches = 0
 
-        def iou_matrix_launch(self, *args):
+        def iou_matrix_ragged_launch(self, *args):
             FailingLib.launches += 1
             return 209          # cudaErrorNoKernelImageForDevice
 
