@@ -35,7 +35,23 @@ Phases, each fatal on failure (no result line is printed then):
   5. lm vs cpu — the full-width model cut to one super-block (6 Mamba
                blocks + the shared block) on the card and on the CPU from
                the same weights: logits within a stated tolerance, greedy
-               tokens equal wherever the top-2 margin exceeds it.
+               tokens equal wherever the top-2 margin exceeds it;
+  6. train   — Armol's selector trained on the card on the tab2 traces of
+               phase 3 (their features reused, a cold subset core): one SAC
+               and one TD3 update at full width (hidden 256x256, batch
+               256) against the CPU from the same state, batch and noise;
+               ``update_block`` of 50 steps equal to 50 eager updates; SAC
+               through ``run_off_policy`` (8 lanes, 3 epochs of 1000
+               steps, the paper's schedule) with its final test AP50 and
+               cost held to a band of the JAX reference's run at the same
+               protocol (``tools/train_reference.py``), the Random-N,
+               Ensemble-N and upper-bound rows equal to the reference's,
+               and the IoU kernel's launches during training zeroed
+               before and read after (> 0); then one TD3 epoch.  The
+               ``[train]`` line gives those launches, env steps/s, ms per
+               gradient step eager and in a block, the wall time split
+               into collect, update and evaluate, and the device's idle
+               share over one update block (``torch.profiler``).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -1003,6 +1019,377 @@ def lm_vs_cpu(dev) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     return {"max_abs_err": err}
 
+# ---------------------------------------------------------------------------
+# phase 6: training Armol's selector
+# ---------------------------------------------------------------------------
+
+# The paper's protocol at full width (Tab. II; hidden 256x256 is the
+# agents' default), 3 epochs of 1000 env steps.
+TRAIN = dict(lanes=8, epochs=3, steps_per_epoch=1000, batch_size=256,
+             start_steps=200, update_after=300, update_every=50,
+             update_iters=50, buffer_capacity=100_000)
+TRAIN_BETA, TRAIN_SEED, BLOCK_K = -0.03, 0, 50
+# The JAX reference at this protocol on the same 5000 traces, agent and
+# driver seeds 0, 1, 2, episode seed s + 1, on a CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py
+REF_AP50 = (36.3107051521112, 33.67579389140673, 28.962018987250055)
+REF_COST = (2.4793333333333334, 2.448, 2.376)
+# The band the port's seed-0 run must fall in: a 95% prediction interval
+# for one more draw from the reference's spread (its initial weights and
+# noise streams differ from the reference's, as another seed's would),
+# mean +- t(0.975, 2 df) * sd * sqrt(1 + 1/3).
+T_975_DF2 = 4.303
+# Its baseline rows on the same env (numpy paths, so the port's are
+# expected equal to the last bit): (AP50, cost).
+REF_ROWS = {"randomN": (20.024240781576854, 1.62),
+            "ensembleN": (43.80807216878356, 3.0),
+            "upper_bound": (24.038480381375525, 1.1186666666666667)}
+# One update step, card against CPU, float32 on both sides (TF32 off):
+STEP_LOSS_TOL = 1e-5   # abs and rel on the losses
+STEP_GRAD_TOL = 1e-5   # abs and rel on the gradients (read from Adam's
+                       # first moment, 0.1 * g after one step)
+STEP_TIGHT = 1e-6      # abs on the parameters after the step, except where
+                       # a gradient is within STEP_GRAD_TOL of 0: Adam's
+                       # first step is ~g/|g|, and a near-zero gradient may
+                       # round to opposite signs (then up to 2 * lr)
+
+
+def training_env(served_env, seed: int, dev):
+    """The env of the training run on the traces phase 3 served: the same
+    features (the ~50 s of category features is not paid twice), a cold
+    subset core on the card, reward beta ``TRAIN_BETA``, episode seed
+    ``seed`` — what ``ArmolEnv(traces, mode="gt", beta=TRAIN_BETA,
+    seed=seed, device=dev)`` builds."""
+    import copy
+    import numpy as np
+    from repro_torch.federation.evaluation import SubsetEvaluationCore
+    env = copy.copy(served_env)
+    env.beta = TRAIN_BETA
+    env.rng = np.random.default_rng(seed)
+    env.core = SubsetEvaluationCore(env.traces, device=dev)
+    env._lane_orders = []
+    return env
+
+
+def make_agent(algo: str, env, dev, seed: int = TRAIN_SEED):
+    from repro_torch.core.sac import SAC, SACConfig
+    from repro_torch.core.td3 import TD3, TD3Config
+    if algo == "sac":
+        return SAC(SACConfig(state_dim=env.state_dim,
+                             n_providers=env.n_providers, seed=seed),
+                   device=dev)
+    return TD3(TD3Config(state_dim=env.state_dim,
+                         n_providers=env.n_providers, seed=seed), device=dev)
+
+
+def agent_tensors(agent) -> dict:
+    """Every tensor of an agent's state by name, on its device."""
+    out = {}
+    for name in ("actor", "q1", "q2", "q1_targ", "q2_targ", "actor_targ"):
+        if hasattr(agent, name):
+            for k, p in getattr(agent, name).named_parameters():
+                out[f"{name}.{k}"] = p.detach()
+    for name in ("actor", "q1", "q2"):
+        opt = getattr(agent, f"opt_{name}")
+        out[f"opt_{name}.step"] = opt.step
+        for i, (m, v) in enumerate(zip(opt.mu, opt.nu)):
+            out[f"opt_{name}.mu{i}"], out[f"opt_{name}.nu{i}"] = m, v
+    if hasattr(agent, "step"):
+        out["step"] = agent.step
+    return out
+
+
+def replay_batches(env, k: int, seed: int) -> dict:
+    """(k, 256, ...) batches of the env's real states, random actions,
+    rewards and done flags (``k`` None: one (256, ...) batch)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lead = (TRAIN["batch_size"],) if k is None else (k, TRAIN["batch_size"])
+    n = env.n_providers
+    return {"s": env.features[rng.integers(0, len(env.features), lead)],
+            "a": (rng.random(lead + (n,)) > 0.5).astype(np.float32),
+            "r": rng.standard_normal(lead).astype(np.float32),
+            "s2": env.features[rng.integers(0, len(env.features), lead)],
+            "d": (rng.random(lead) > 0.9).astype(np.float32)}
+
+
+def step_card_vs_cpu(env, dev) -> dict:
+    """One SAC and one TD3 update at full width from the same initial
+    state (both drawn from the seed on the CPU), the same batch and the
+    same injected noise, on the card and on the CPU.  Losses within
+    STEP_LOSS_TOL; gradients (Adam's first moment over 0.1, as it is after
+    one step) within STEP_GRAD_TOL; parameters and second moments within
+    STEP_TIGHT, but where the gradient is within STEP_GRAD_TOL of 0 (those
+    counted, within 2 * lr); targets within STEP_TIGHT + (1 - polyak) *
+    2 * lr, what such an entry moves a target."""
+    import numpy as np
+    import torch
+    out = {}
+    batch = replay_batches(env, None, seed=11)
+    rng = np.random.default_rng(12)
+    shape = (TRAIN["batch_size"], env.n_providers)
+    for algo in ("sac", "td3"):
+        gpu, cpu = make_agent(algo, env, dev), make_agent(algo, env, "cpu")
+        lr, rho = cpu.cfg.lr, cpu.cfg.polyak
+        draws = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) for _ in range(2 if algo == "sac" else 1)]
+        mg = gpu.update(batch, noise=tuple(d.to(dev) for d in draws)
+                        if algo == "sac" else draws[0].to(dev))
+        mc = cpu.update(batch, noise=tuple(draws) if algo == "sac"
+                        else draws[0])
+        loss_err = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k]))
+                       for k in mc)
+        grad_err, param_err, targ_err, loose, n_el = 0.0, 0.0, 0.0, 0, 0
+        for net in ("actor", "q1", "q2"):
+            og, oc = getattr(gpu, f"opt_{net}"), getattr(cpu, f"opt_{net}")
+            if int(og.step) != int(oc.step):
+                raise AssertionError(f"{algo} step: opt_{net} steps differ")
+            for pg, pc, mug, muc, nug, nuc in zip(
+                    getattr(gpu, net).parameters(),
+                    getattr(cpu, net).parameters(), og.mu, oc.mu, og.nu,
+                    oc.nu):
+                n_el += pc.numel()
+                gc, gg = muc / 0.1, mug.cpu() / 0.1
+                grad_err = max(grad_err, float(
+                    ((gg - gc).abs() / (1.0 + gc.abs())).max()))
+                param_err = max(param_err, float(
+                    (nug.cpu() - nuc).abs().max()))
+                diff = (pg.detach().cpu() - pc.detach()).abs()
+                far = diff > STEP_TIGHT
+                if (gc[far].abs() > STEP_GRAD_TOL).any() or \
+                        float(diff.max()) > 2 * lr + STEP_TIGHT:
+                    raise AssertionError(f"{algo} step: {net} off by "
+                                         f"{float(diff.max())}")
+                loose += int(far.sum())
+                if (~far).any():
+                    param_err = max(param_err, float(diff[~far].max()))
+        for net in ("q1_targ", "q2_targ", "actor_targ"):
+            if hasattr(cpu, net):
+                for pg, pc in zip(getattr(gpu, net).parameters(),
+                                  getattr(cpu, net).parameters()):
+                    targ_err = max(targ_err, float(
+                        (pg.cpu() - pc).abs().max()))
+        if algo == "td3" and int(gpu.step) != int(cpu.step):
+            raise AssertionError("td3 step: delay counters differ")
+        log(f"[train] one {algo} step at full width (hidden 256x256, batch "
+            f"256), card vs CPU: losses {json.dumps(mc)} max rel err "
+            f"{loss_err:.3g}, gradients max err {grad_err:.3g}, parameters "
+            f"and moments max abs err {param_err:.3g} ({loose} of {n_el} "
+            f"parameter entries beyond {STEP_TIGHT}, all at gradients "
+            f"within {STEP_GRAD_TOL} of 0), targets {targ_err:.3g}")
+        if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL
+                and param_err <= STEP_TIGHT
+                and targ_err <= STEP_TIGHT + (1 - rho) * 2 * lr):
+            raise AssertionError(f"{algo} step: card and CPU disagree")
+        out[algo] = {"loss_rel_err": loss_err, "grad_err": grad_err,
+                     "param_err": param_err, "target_err": targ_err,
+                     "loose_entries": loose, "entries": n_el}
+    return out
+
+
+def block_vs_eager(env, dev) -> dict:
+    """``update_block`` of K=BLOCK_K steps against K eager ``update``
+    calls on the card, from the same state and generator: every state
+    tensor and metric equal (``torch.equal``).  Then ms per gradient step,
+    eager (each ``update`` reads its metrics back) and in a block (one
+    read-back per block), after a warm-up, by host clock to a sync."""
+    import torch
+    out = {}
+    for algo in ("sac", "td3"):
+        blk = replay_batches(env, BLOCK_K, seed=13)
+        eager, fused = make_agent(algo, env, dev), make_agent(algo, env, dev)
+        ms = [eager.update({k: v[i] for k, v in blk.items()})
+              for i in range(BLOCK_K)]
+        traces = fused.update_block(blk, sync=False)
+        torch.cuda.synchronize()
+        for k, v in traces.items():
+            if v.cpu().tolist() != [m[k] for m in ms]:
+                raise AssertionError(f"{algo} block: metric {k} differs")
+        te, tf = agent_tensors(eager), agent_tensors(fused)
+        bad = [k for k in te if not torch.equal(te[k], tf[k])]
+        if bad:
+            raise AssertionError(f"{algo} block differs from eager: {bad}")
+        times = {}
+        for label, fn in (
+                ("eager", lambda: [eager.update({k: v[i] for k, v in
+                                                  blk.items()})
+                                   for i in range(BLOCK_K)]),
+                ("block", lambda: fused.update_block(blk))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label] = (time.perf_counter() - t0) * 1e3 / BLOCK_K
+        out[algo] = times
+        log(f"[train] {algo} update_block K={BLOCK_K} == {BLOCK_K} eager "
+            f"updates on the card (torch.equal on {len(te)} state tensors "
+            f"and every metric); ms per gradient step eager "
+            f"{times['eager']:.4f}, block {times['block']:.4f}")
+    return out
+
+
+def block_idle_share(env, dev) -> dict:
+    """One SAC update block (K=BLOCK_K, batch 256) under
+    ``torch.profiler``: the device's busy time and idle share of the
+    block's wall time, the CUDA kernels it ran, and the host ops with the
+    most self time (ms per gradient step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    agent = make_agent("sac", env, dev)
+    blk = replay_batches(env, BLOCK_K, seed=14)
+    agent.update_block(blk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.update_block(blk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    events = [e for e in avgs
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _device_us(events)
+    host = sorted((e for e in avgs
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / 1e6 / wall if busy > 0
+            else None, "cuda_kernels": sum(e.count for e in events),
+            "host_self_ms_per_step": {
+                e.key: e.self_cpu_time_total / 1e3 / BLOCK_K for e in host}}
+
+
+class Stopwatch:
+    """Wraps ``obj.name`` so the host time of every call, to a device
+    sync, adds up in ``seconds``; every call still goes through it."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.seconds = obj, name, 0.0
+        self.orig = getattr(obj, name)
+
+    def __enter__(self):
+        import torch
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.orig)
+
+
+def train_run(env, algo: str, dev, epochs: int) -> dict:
+    """``run_off_policy`` at the TRAIN protocol: the IoU kernel's launches
+    zeroed just before and read just after, wall time split into
+    collect (acting and env steps), update (the update blocks) and
+    evaluate (the per-epoch test episodes)."""
+    import torch
+    from repro_torch.core import loops
+    from repro_torch.kernels.iou_matrix import ops
+    agent = make_agent(algo, env, dev)
+    kw = dict(TRAIN, epochs=epochs)
+    with Stopwatch(agent, "update_block") as upd, \
+            Stopwatch(loops, "evaluate_policy") as ev:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = loops.run_off_policy(agent, env, seed=TRAIN_SEED, log=log,
+                                    **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.LAUNCHES
+    steps = hist[-1]["steps"]
+    return {"history": hist, "launches": launches, "steps": steps,
+            "wall_s": wall, "update_s": upd.seconds,
+            "evaluate_s": ev.seconds,
+            "collect_s": wall - upd.seconds - ev.seconds,
+            "env_steps_per_s": steps / wall,
+            "collect_steps_per_s": steps / (wall - upd.seconds
+                                            - ev.seconds),
+            "agent": agent}
+
+
+def band(values) -> tuple:
+    """The 95% prediction interval of one more draw from ``values`` (3
+    reference seeds)."""
+    import math
+    import statistics
+    m, sd = statistics.mean(values), statistics.stdev(values)
+    half = T_975_DF2 * sd * math.sqrt(1 + 1 / len(values))
+    return m - half, m + half
+
+
+def train_phase(served_env, dev) -> dict:
+    import math
+    import torch
+    from repro_torch.core import loops
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the card-vs-CPU checks need it off")
+    t_phase = time.perf_counter()
+    env = training_env(served_env, TRAIN_SEED + 1, dev)
+    step = step_card_vs_cpu(env, dev)
+    blocks = block_vs_eager(env, dev)
+    idle = block_idle_share(env, dev)
+    log(f"[train] one SAC update block under torch.profiler: "
+        f"{json.dumps(idle)}")
+
+    sac = train_run(env, "sac", dev, TRAIN["epochs"])
+    last = sac["history"][-1]
+    ap_band, cost_band = band(REF_AP50), band(REF_COST)
+    log(f"[train] SAC final test AP50 {last['ap50']} cost {last['cost']}; "
+        f"the reference's band (95% prediction interval of seeds 0-2): AP50 "
+        f"{ap_band}, cost {cost_band}")
+    if sac["launches"] <= 0:
+        raise AssertionError("training never launched the IoU kernel")
+    if not (ap_band[0] <= last["ap50"] <= ap_band[1]
+            and cost_band[0] <= last["cost"] <= cost_band[1]):
+        raise AssertionError("trained AP50 or cost outside the reference's "
+                             "band")
+    rows = {name: loops.evaluate_policy(pol, env) for name, pol in (
+        ("randomN", loops.randomN_policy(env)),
+        ("ensembleN", loops.ensembleN_policy(env)))}
+    rows["upper_bound"] = loops.upper_bound(env)
+    rows["armol_sac"] = last
+    for name in ("randomN", "ensembleN", "upper_bound", "armol_sac"):
+        r = rows[name]
+        log(f"[train] Tab. II row {name}: AP50 {r['ap50']:.4f} mAP "
+            f"{r['map']:.4f} cost {r['cost']:.4f} counts {r['counts']}")
+        if name in REF_ROWS and (r["ap50"], r["cost"]) != REF_ROWS[name]:
+            raise AssertionError(f"{name}: {(r['ap50'], r['cost'])} is not "
+                                 f"the reference's {REF_ROWS[name]}")
+
+    td3 = train_run(training_env(served_env, TRAIN_SEED + 1, dev), "td3",
+                    dev, 1)
+    td3_last = td3["history"][-1]
+    if not (math.isfinite(td3_last["ap50"])
+            and math.isfinite(td3_last["cost"])):
+        raise AssertionError("TD3 training gave a non-finite result")
+    summary = {
+        "iou_launches": sac["launches"], "env_steps": sac["steps"],
+        "env_steps_per_s": sac["env_steps_per_s"],
+        "collect_steps_per_s": sac["collect_steps_per_s"],
+        "ms_per_grad_step_eager": blocks["sac"]["eager"],
+        "ms_per_grad_step_block": blocks["sac"]["block"],
+        "wall_s": sac["wall_s"], "collect_s": sac["collect_s"],
+        "update_s": sac["update_s"], "evaluate_s": sac["evaluate_s"],
+        "block_device_idle_share": idle["device_idle_share"],
+        "td3_iou_launches": td3["launches"],
+        "td3_ms_per_grad_step_eager": blocks["td3"]["eager"],
+        "td3_ms_per_grad_step_block": blocks["td3"]["block"],
+        "td3_ap50": td3_last["ap50"], "td3_cost": td3_last["cost"],
+        "td3_wall_s": td3["wall_s"]}
+    log(f"[train] {json.dumps(summary)}")
+    log(f"[train] phase 6 in {time.perf_counter() - t_phase:.1f}s")
+    return {"summary": summary, "step": step, "idle": idle,
+            "launches": sac["launches"] + td3["launches"]}
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -1091,6 +1478,10 @@ def main() -> int:
     cmp = lm_vs_cpu(dev)
     log(f"[lm] phases 4-5 in {time.perf_counter() - t0:.1f}s")
 
+    # 6. Armol's selector trained on the phase-3 traces
+    torch.cuda.empty_cache()
+    train = train_phase(main3["svc"].env, dev)
+
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
             or m.startswith("repro.")]
@@ -1102,9 +1493,10 @@ def main() -> int:
         "name": "iou_matrix", "route": "cuda",
         "source": "src/repro_torch/kernels/iou_matrix/csrc/iou_matrix.cu",
         "replaces": "src/repro/kernels/iou_matrix/kernel.py:19",
-        "launches": main3["launches"] + tab3["launches"],
+        "launches": main3["launches"] + tab3["launches"] + train["launches"],
         "launches_tab2": main3["launches"],
         "launches_tab3": tab3["launches"],
+        "launches_train": train["launches"],
         "mismatches": iou["mismatches"],
         "max_abs_err": iou["max_abs_err"],
         "ms": timing["tab2"]["ms"], "plain_ms": timing["tab2"]["plain_ms"],

@@ -3,13 +3,14 @@ port's modules, so both packages can be run on the same weights.
 
 The reference keeps a linear layer as ``{"w": (fan_in, fan_out), "b":
 (fan_out,)}`` and convolution kernels as HWIO; ``nn.Linear`` stores
-``(out, in)`` and ``F.conv2d`` takes OIHW.  The LM keeps the reference's
-``(fan_in, fan_out)`` layout, but one module per block where the reference
-stacks the layers along leading axes.
+``(out, in)`` and ``F.conv2d`` takes OIHW.  An agent's AdamW moments are
+shaped like its weights and are transposed with them.  The LM keeps the
+reference's ``(fan_in, fan_out)`` layout, but one module per block where
+the reference stacks the layers along leading axes.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.networks import MLP, FeatureExtractor
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.model import Model
+from repro_torch.optim.adamw import AdamWState
 
 
 def _t(x) -> torch.Tensor:
@@ -49,6 +51,62 @@ def actor_from_jax(params: Sequence[Mapping], actor: Optional[MLP] = None
     for lin, layer in zip(actor.layers, params):
         _load_linear(lin, layer)
     return actor
+
+
+def _field(tree: Any, name: str) -> Any:
+    """A field of a reference state: a NamedTuple's attribute or a
+    mapping's key."""
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def _load_adamw(opt: AdamWState, jopt: Any, mlp: MLP) -> None:
+    """Reference ``AdamWState(step, mu, nu)`` (moments shaped like the MLP
+    pytree) into ``opt``: each weight's moments transposed like the weight."""
+    with torch.no_grad():
+        for name, dst in (("mu", opt.mu), ("nu", opt.nu)):
+            tree = _field(jopt, name)
+            if len(tree) != len(mlp.layers):
+                raise ValueError(f"{name}: {len(tree)} layers for an MLP of "
+                                 f"{len(mlp.layers)}")
+            src = []
+            for layer in tree:
+                src += [np.asarray(layer["w"], np.float32).T, layer["b"]]
+            for d, x in zip(dst, src):
+                x = _t(x)
+                if tuple(x.shape) != tuple(d.shape):
+                    raise ValueError(f"{name}: shape {tuple(x.shape)} does "
+                                     f"not fit {tuple(d.shape)}")
+                d.copy_(x)
+        opt.step.fill_(int(np.asarray(_field(jopt, "step"))))
+
+
+def _agent_from_jax(state: Any, agent: Any, nets: Sequence[str]) -> Any:
+    for name in nets:
+        actor_from_jax(_field(state, name), getattr(agent, name))
+    for name in ("actor", "q1", "q2"):
+        _load_adamw(getattr(agent, f"opt_{name}"),
+                    _field(state, f"opt_{name}"), getattr(agent, name))
+    return agent
+
+
+def sac_state_from_jax(state: Any, agent: Any) -> Any:
+    """The reference's ``SACState`` (numpy leaves, e.g. ``jax.tree.map(
+    np.asarray, sac.state)``) into a port ``SAC`` in place: the actor, both
+    critics and their targets, the three AdamW states (moments transposed
+    like the weights) and their steps.  The PRNG key is not carried over:
+    the port draws its noise from its own generator."""
+    return _agent_from_jax(state, agent, ("actor", "q1", "q2", "q1_targ",
+                                          "q2_targ"))
+
+
+def td3_state_from_jax(state: Any, agent: Any) -> Any:
+    """The reference's ``TD3State`` (numpy leaves) into a port ``TD3`` in
+    place: as ``sac_state_from_jax``, plus the actor's target and the
+    delay counter ``step``."""
+    _agent_from_jax(state, agent, ("actor", "actor_targ", "q1", "q2",
+                                   "q1_targ", "q2_targ"))
+    agent.step.fill_(int(np.asarray(_field(state, "step"))))
+    return agent
 
 
 def feature_extractor_from_jax(params: Mapping) -> FeatureExtractor:

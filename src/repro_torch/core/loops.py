@@ -1,21 +1,49 @@
-"""Policy evaluation and the Ensemble-N baseline (counterpart of the
-evaluation half of ``repro.core.loops``).
+"""Training/evaluation loops for the federation agents + paper baselines
+(counterpart of ``repro.core.loops``, off-policy half).
+
+The paper's protocol: off-policy agents (SAC/TD3) interact with the trace
+env and update from the replay buffer; at the end of every epoch the agent
+is evaluated deterministically on the held-out test episode (corpus AP50
++ average cost + per-provider selection counts — the columns of Tab. II).
+Baselines: Random-1, Random-N, Ensemble-N, and the brute-force Upper
+Bound (Algo. 2).
 
 ``evaluate_policy`` computes all test-split actions in ONE agent forward
 pass (the actor is batch-polymorphic) and scores them through the
-memoized subset-evaluation core: corpus AP50 + mAP vs the true ground
-truth, average cost and per-provider selection counts — the columns of
-Tab. II.  The training drivers belong to the training side and are not
-here yet.
+memoized subset-evaluation core; ``upper_bound`` enumerates every subset
+of an image in one lattice pass through the same core.
+
+Two off-policy drivers:
+
+  * ``run_offpolicy_sequential`` — the reference's scalar driver, kept as
+    the parity reference: one ``env.step``, one ``buf.add`` and one
+    ``agent.update`` per transition / gradient step.
+  * ``run_off_policy`` — L parallel episode lanes stepped through
+    ``ArmolEnv.step_lanes`` (one batched agent forward + one batched
+    subset evaluation per tick), transitions written with
+    ``ReplayBuffer.add_batch``, and each ``update_iters`` gradient steps
+    run as one ``agent.update_block`` over a pre-sampled index matrix
+    (``sample_block``).
+
+At ``lanes=1`` the multi-lane driver consumes every random stream (env
+shuffles, exploration draws, buffer sampling, the agent's generator) in
+the sequential order and keeps the sequential (D,) act shape, so its
+transition stream and evaluation history are bit-identical to the
+sequential driver's.  PPO's drivers, the observability hook and the
+device-resident replay buffer are not ported.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import itertools
+import time
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core.replay_buffer import ReplayBuffer
 from repro_torch.ensemble.metrics import ap50, coco_map
 from repro_torch.federation.env import ArmolEnv
+from repro_torch.federation.evaluation import mask_to_action, popcount_masks
 
 
 def _make_batch_select(agent, *, deterministic: bool):
@@ -100,7 +128,200 @@ def evaluate_policy(select_fn: Callable[[np.ndarray], np.ndarray],
             "counts": counts.tolist(), "n_images": n}
 
 
+# ---------------------------------------------------------------------------
+# Off-policy drivers (SAC / TD3)
+# ---------------------------------------------------------------------------
+
+def _new_buffer(env: ArmolEnv, capacity: int, seed: int) -> ReplayBuffer:
+    return ReplayBuffer(capacity, env.state_dim, env.n_providers, seed=seed)
+
+
+def _log_epoch(log, tag: str, res: Dict) -> None:
+    if log:
+        log(f"[{tag}] epoch {res['epoch']}: AP50={res['ap50']:.2f} "
+            f"mAP={res['map']:.2f} cost={res['cost']:.3f} "
+            f"counts={res['counts']}")
+
+
+def run_offpolicy_sequential(agent, env: ArmolEnv, *, epochs: int = 5,
+                             steps_per_epoch: int = 500,
+                             batch_size: int = 256,
+                             start_steps: int = 200, update_after: int = 300,
+                             update_every: int = 50, update_iters: int = 50,
+                             buffer_capacity: int = 100_000, seed: int = 0,
+                             log: Optional[Callable[[str], None]] = print,
+                             buffer: Optional[ReplayBuffer] = None
+                             ) -> List[Dict]:
+    """The scalar off-policy driver, the parity reference of
+    ``run_off_policy``: one env step, one buffer add and one ``update``
+    per transition / gradient step."""
+    rng = np.random.default_rng(seed)
+    buf = buffer if buffer is not None else \
+        _new_buffer(env, buffer_capacity, seed)
+    history = []
+    s = env.reset(split="train")
+    total = 0
+    for epoch in range(epochs):
+        t0 = time.time()
+        for _ in range(steps_per_epoch):
+            if total < start_steps:
+                a = rng.integers(0, 2, env.n_providers).astype(np.float32)
+                if a.sum() == 0:
+                    a[rng.integers(env.n_providers)] = 1.0
+            else:
+                a, _ = agent.select_action(s)
+            s2, r, done, info = env.step(a)
+            buf.add(s, a, r, s2, float(done))
+            s = env.reset(split="train") if done else s2
+            total += 1
+            if total >= update_after and total % update_every == 0:
+                for _ in range(update_iters):
+                    agent.update(buf.sample(batch_size))
+        res = evaluate_policy(agent_policy(agent), env)
+        res.update({"epoch": epoch, "steps": total,
+                    "wall_s": round(time.time() - t0, 1)})
+        history.append(res)
+        _log_epoch(log, type(agent).__name__, res)
+    return history
+
+
+def run_off_policy(agent, env: ArmolEnv, *, lanes: int = 1, epochs: int = 5,
+                   steps_per_epoch: int = 500, batch_size: int = 256,
+                   start_steps: int = 200, update_after: int = 300,
+                   update_every: int = 50, update_iters: int = 50,
+                   buffer_capacity: int = 100_000, seed: int = 0,
+                   log: Optional[Callable[[str], None]] = print,
+                   buffer: Optional[ReplayBuffer] = None) -> List[Dict]:
+    """Multi-lane off-policy driver.
+
+    ``lanes`` parallel episode cursors advance through
+    ``ArmolEnv.step_lanes``, transitions land in the buffer via one
+    ``add_batch`` write per tick, and each ``update_iters`` block of
+    gradient steps runs as one ``agent.update_block`` over a pre-sampled
+    index matrix (a per-step ``update`` loop for an agent without one).
+    ``steps_per_epoch`` counts transitions (rounded up to whole ticks).
+    With ``lanes=1`` the transition stream and history are bit-identical
+    to ``run_offpolicy_sequential``.
+    """
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    rng = np.random.default_rng(seed)
+    buf = buffer if buffer is not None else \
+        _new_buffer(env, buffer_capacity, seed)
+    if getattr(buf, "device_resident", False):
+        raise NotImplementedError(
+            "a device-resident replay buffer is not ported yet; pass a "
+            "repro_torch.core.replay_buffer.ReplayBuffer")
+    update_block = getattr(agent, "update_block", None)
+    select_many = _make_batch_select(agent, deterministic=False)
+    n = env.n_providers
+    history = []
+    states = env.reset_lanes(lanes, split="train")
+    total = 0
+    for epoch in range(epochs):
+        t0 = time.time()
+        for _ in range(-(-steps_per_epoch // lanes)):
+            explore = (total + np.arange(lanes)) < start_steps
+            acts = np.zeros((lanes, n), np.float32)
+            for lane in np.flatnonzero(explore):
+                a = rng.integers(0, 2, n).astype(np.float32)
+                if a.sum() == 0:
+                    a[rng.integers(n)] = 1.0
+                acts[lane] = a
+            on_policy = np.flatnonzero(~explore)
+            if len(on_policy) == lanes == 1:
+                # keep the sequential (D,) act shape: matvec and matmul
+                # round differently, and L=1 parity is bitwise
+                acts[0] = np.asarray(agent.select_action(states[0])[0],
+                                     np.float32)
+            elif len(on_policy):
+                acts[on_policy] = select_many(states[on_policy])
+            nxt, r, dones, infos, carry = env.step_lanes(acts)
+            buf.add_batch(states, acts, r, nxt, dones.astype(np.float32))
+            states = carry
+            prev, total = total, total + lanes
+            for k in range(prev // update_every + 1,
+                           total // update_every + 1):
+                if k * update_every < update_after:
+                    continue
+                if len(buf) == 0:
+                    raise ValueError(
+                        "cannot sample from an empty replay buffer: an "
+                        f"update is scheduled at step {k * update_every} "
+                        "but no transitions have been stored "
+                        f"(update_after={update_after})")
+                if update_block is not None:
+                    update_block(buf.sample_block(update_iters, batch_size))
+                else:
+                    for _ in range(update_iters):
+                        agent.update(buf.sample(batch_size))
+        res = evaluate_policy(agent_policy(agent), env)
+        res.update({"epoch": epoch, "steps": total,
+                    "wall_s": round(time.time() - t0, 1)})
+        history.append(res)
+        _log_epoch(log, f"{type(agent).__name__}x{lanes}", res)
+    return history
+
+
+# ---------------------------------------------------------------------------
+# Baselines (Tab. II)
+# ---------------------------------------------------------------------------
+
+def random1_policy(env: ArmolEnv, seed: int = 0):
+    rng = np.random.default_rng(seed)
+
+    def f(_s):
+        a = np.zeros(env.n_providers, np.float32)
+        a[rng.integers(env.n_providers)] = 1.0
+        return a
+    return f
+
+
+def randomN_policy(env: ArmolEnv, seed: int = 0):
+    rng = np.random.default_rng(seed)
+
+    def f(_s):
+        a = rng.integers(0, 2, env.n_providers).astype(np.float32)
+        if a.sum() == 0:
+            a[rng.integers(env.n_providers)] = 1.0
+        return a
+    return f
+
+
 def ensembleN_policy(env: ArmolEnv):
     def f(_s):
         return np.ones(env.n_providers, np.float32)
     return f
+
+
+def enumeration_actions(n: int) -> List[np.ndarray]:
+    """The Algo.-2 candidate list: all non-empty binary vectors, stable-
+    sorted by popcount (ties keep itertools.product order)."""
+    actions = [np.asarray(a, np.float32)
+               for a in itertools.product([0, 1], repeat=n) if any(a)]
+    actions.sort(key=lambda a: (a.sum(),))
+    return actions
+
+
+def upper_bound(env: ArmolEnv) -> Dict:
+    """Brute force (Algo. 2): per test image, the best action by per-image
+    AP50; ties broken toward the cheaper subset (popcount order, first
+    maximum).  Each image pays for its IoU table once, then one
+    ``evaluate_lattice`` pass scores all 2^N - 1 subsets."""
+    n = env.n_providers
+    action_of = {m: mask_to_action(m, n) for m in popcount_masks(n)}
+    env.core.precompute(env.test_idx)
+    dts, gts = {}, {}
+    counts = np.zeros(n, np.int64)
+    total_cost = 0.0
+    for img in env.test_idx:
+        lat = env.core.evaluate_lattice(int(img), against="gt")
+        best_m = int(lat.masks[int(np.argmax(lat.ap))])
+        best_a = action_of[best_m]
+        counts += (best_a > 0.5).astype(np.int64)
+        total_cost += float(np.sum(env.costs * (best_a > 0.5)))
+        dts[int(img)] = env.core.ensemble(int(img), best_m)
+        gts[int(img)] = env.traces.gts[int(img)]
+    m = max(len(env.test_idx), 1)
+    return {"ap50": 100.0 * ap50(dts, gts), "map": 100.0 * coco_map(dts, gts),
+            "cost": total_cost / m, "counts": counts.tolist(), "n_images": m}

@@ -1,9 +1,10 @@
-"""The actor MLP and the state feature extractor as PyTorch modules.
+"""The actor and critic MLPs and the state feature extractor as PyTorch
+modules.
 
 Counterpart of ``repro.core.networks``: the squashed-Gaussian SAC actor
-(``actor_dist``, ``mean_action``, ``sample_action``) and the fixed-seed
-depthwise-separable conv stack that plays MobileNet's role.  The Q, V and
-TD3 heads belong to the training side and are not here yet.
+(``actor_dist``, ``mean_action``, ``sample_action``), the TD3 actor
+(``det_action``), the Q and V critics and the fixed-seed
+depthwise-separable conv stack that plays MobileNet's role.
 
 Layouts follow the reference at the public functions: images are NHWC
 (T, H, W, 3); internally the convs run NCHW with weights in OIHW.  Float32
@@ -92,6 +93,35 @@ def sample_action(actor: MLP, state: torch.Tensor, *,
 def mean_action(actor: MLP, state: torch.Tensor) -> torch.Tensor:
     mu, _ = actor_dist(actor, state)
     return 0.5 * (torch.tanh(mu) + 1.0)
+
+
+def init_det_actor(state_dim: int, n_providers: int, hidden=(256, 256),
+                   generator: Optional[torch.Generator] = None) -> MLP:
+    return MLP((state_dim, *hidden, n_providers), generator)
+
+
+def det_action(actor: MLP, state: torch.Tensor) -> torch.Tensor:
+    """The TD3 actor's proto action: a sigmoid head over the MLP."""
+    return torch.sigmoid(actor(state))
+
+
+def init_q(state_dim: int, n_providers: int, hidden=(256, 256),
+           generator: Optional[torch.Generator] = None) -> MLP:
+    return MLP((state_dim + n_providers, *hidden, 1), generator)
+
+
+def q_value(q: MLP, state: torch.Tensor, action: torch.Tensor
+            ) -> torch.Tensor:
+    return q(torch.cat([state, action], dim=-1))[..., 0]
+
+
+def init_v(state_dim: int, hidden=(256, 256),
+           generator: Optional[torch.Generator] = None) -> MLP:
+    return MLP((state_dim, *hidden, 1), generator)
+
+
+def v_value(v: MLP, state: torch.Tensor) -> torch.Tensor:
+    return v(state)[..., 0]
 
 
 def _same_pad(h: int, w: int, k: int = 3, s: int = 2) -> Tuple[int, ...]:

@@ -90,10 +90,11 @@ def average_precision(dts: Dict[int, Detections], gts: Dict[int, Detections],
             labs.update(np.unique(g.labels).tolist())
         labels = sorted(labs)
     aps = []
+    empty = Detections.empty()
     for lab in labels:
         scores, tps, n_gt = [], [], 0
         for img, gt in gts.items():
-            dt = dts.get(img, Detections.empty())
+            dt = dts.get(img, empty)
             s, t, n = _match_image(dt, gt, lab, iou_thr)
             scores.append(s)
             tps.append(t)

@@ -357,3 +357,88 @@ def test_reduced_zamba2_on_the_card_matches_the_cpu(dev):
         lg, cg = gpu.decode_step(cg, cur)
         lc, cc = cpu.decode_step(cc, cur)
         assert float((lg.cpu() - lc).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# training: the agents' updates and the off-policy driver on the card
+# ---------------------------------------------------------------------------
+
+def _agent(algo, dev, state_dim=12, n=3):
+    from repro_torch.core.sac import SAC, SACConfig
+    from repro_torch.core.td3 import TD3, TD3Config
+    if algo == "sac":
+        return SAC(SACConfig(state_dim=state_dim, n_providers=n,
+                             hidden=(64, 64)), device=dev)
+    return TD3(TD3Config(state_dim=state_dim, n_providers=n,
+                         hidden=(64, 64)), device=dev)
+
+
+def _batches(rng, k, b=32, state_dim=12, n=3):
+    return {"s": rng.standard_normal((k, b, state_dim)).astype(np.float32),
+            "a": (rng.random((k, b, n)) > 0.5).astype(np.float32),
+            "r": rng.standard_normal((k, b)).astype(np.float32),
+            "s2": rng.standard_normal((k, b, state_dim)).astype(np.float32),
+            "d": (rng.random((k, b)) > 0.8).astype(np.float32)}
+
+
+@pytest.mark.parametrize("algo", ["sac", "td3"])
+def test_update_block_equals_eager_updates_on_the_card(dev, algo):
+    eager, fused = _agent(algo, dev), _agent(algo, dev)
+    blk = _batches(np.random.default_rng(0), 8)
+    for i in range(8):
+        eager.update({k: v[i] for k, v in blk.items()})
+    fused.update_block(blk)
+    for ma, mb in zip(eager.__dict__.values(), fused.__dict__.values()):
+        if isinstance(ma, torch.nn.Module):
+            for p, q in zip(ma.parameters(), mb.parameters()):
+                assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("algo", ["sac", "td3"])
+def test_one_update_on_the_card_matches_the_cpu(dev, algo):
+    """Same initial state (drawn on the CPU from the seed), batch and
+    injected noise: losses within 1e-5 and parameters within 1e-6 except
+    where Adam's sign-like first step meets a near-zero gradient (2 lr)."""
+    gpu, cpu = _agent(algo, dev), _agent(algo, "cpu")
+    rng = np.random.default_rng(1)
+    batch = {k: v[0] for k, v in _batches(rng, 1).items()}
+    draws = [torch.from_numpy(rng.standard_normal((32, 3)).astype(
+        np.float32)) for _ in range(2)]
+    noise_c = tuple(draws) if algo == "sac" else draws[0]
+    noise_g = tuple(d.to(dev) for d in draws) if algo == "sac" \
+        else draws[0].to(dev)
+    mg, mc = gpu.update(batch, noise=noise_g), cpu.update(batch,
+                                                          noise=noise_c)
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(1.0, abs(mc[k])), k
+    for net in ("actor", "q1", "q2"):
+        for pg, pc in zip(getattr(gpu, net).parameters(),
+                          getattr(cpu, net).parameters()):
+            assert float((pg.detach().cpu() - pc.detach()).abs().max()) \
+                <= 2 * cpu.cfg.lr + 1e-6, net
+
+
+def test_training_drives_the_iou_kernel(dev):
+    """A short SAC run through ``run_off_policy`` on the card: the IoU
+    tables of the images it visits come from the kernel, and equal the
+    CPU plain version's."""
+    from repro_torch.core.loops import run_off_policy
+    from repro_torch.core.sac import SAC, SACConfig
+    from repro_torch.federation.env import ArmolEnv
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.federation.traces import generate_traces
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.kernels.iou_matrix.ref import iou_matrix_torch
+    env = ArmolEnv(generate_traces(default_providers(), 40, seed=0),
+                   mode="gt", beta=-0.03, seed=1, device=dev)
+    agent = SAC(SACConfig(state_dim=env.state_dim, n_providers=3,
+                          hidden=(64, 64)), device=dev)
+    ops.reset_launches()
+    hist = run_off_policy(agent, env, lanes=4, epochs=1, steps_per_epoch=40,
+                          batch_size=16, start_steps=8, update_after=8,
+                          update_every=8, update_iters=4, log=None)
+    assert ops.LAUNCHES > 0
+    assert np.isfinite(hist[-1]["ap50"]) and hist[-1]["steps"] == 40
+    for img, table in env.core._tables.items():
+        b = torch.from_numpy(table.boxes)
+        assert np.array_equal(table.iou, iou_matrix_torch(b, b).numpy())

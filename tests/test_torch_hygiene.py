@@ -31,6 +31,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     mods = port_modules()
     assert len(mods) > 30
     for m in ("repro_torch.models.model", "repro_torch.serving.engine",
+              "repro_torch.core.td3", "repro_torch.core.blocks",
+              "repro_torch.core.replay_buffer", "repro_torch.optim.adamw",
+              "repro_torch.launch.train",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
               "repro_torch.configs.zamba2_2_7b"):
@@ -73,6 +76,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     """With no CUDA device the default device raises; ``device="cpu"``
     runs."""
     from repro_torch.core.sac import SAC, SACConfig
+    from repro_torch.core.td3 import TD3, TD3Config
     from repro_torch.device import resolve_device
     from repro_torch.ensemble.pipeline import batch_iou_matrices
     from repro_torch.federation.env import ArmolEnv
@@ -89,6 +93,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
                  lambda: SubsetEvaluationCore(tr),
                  lambda: ArmolEnv(tr),
                  lambda: SAC(SACConfig(state_dim=4, n_providers=3)),
+                 lambda: TD3(TD3Config(state_dim=4, n_providers=3)),
                  lambda: batch_iou_matrices(boxes),
                  lambda: kernel_batch(boxes)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -114,6 +119,28 @@ def test_serve_cli_raises_without_gpu_and_runs_on_cpu():
                          capture_output=True, text=True, timeout=120)
     assert cpu.returncode == 0, cpu.stderr
     assert "8 requests" in cpu.stdout
+
+
+def test_train_cli_raises_without_gpu_and_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--federation",
+            "--images", "12", "--epochs", "1", "--steps", "16", "--lanes",
+            "4"]
+    gpu = subprocess.run(base, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert gpu.returncode != 0
+    assert "no CUDA device" in gpu.stderr
+    for algo in ("sac", "td3"):
+        cpu = subprocess.run(base + ["--algo", algo, "--device", "cpu"],
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert cpu.returncode == 0, cpu.stderr
+        assert "AP50=" in cpu.stdout and "over 16 steps" in cpu.stdout
+    for extra in (["--algo", "ppo"], ["--scenario", "price_war"],
+                  ["--arch", "zamba2-2.7b"]):
+        out = subprocess.run(base + extra + ["--device", "cpu"], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0 and "not ported yet" in out.stderr
 
 
 def test_lm_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
