@@ -43,15 +43,25 @@ Phases, each fatal on failure (no result line is printed then):
                ``update_block`` of 50 steps equal to 50 eager updates; SAC
                through ``run_off_policy`` (8 lanes, 3 epochs of 1000
                steps, the paper's schedule) with its final test AP50 and
-               cost held to a band of the JAX reference's run at the same
-               protocol (``tools/train_reference.py``), the Random-N,
+               cost held to a band of the JAX reference's five seeds at the
+               same protocol (``tools/train_reference.py``), the Random-N,
                Ensemble-N and upper-bound rows equal to the reference's,
                and the IoU kernel's launches during training zeroed
-               before and read after (> 0); then one TD3 epoch.  The
-               ``[train]`` line gives those launches, env steps/s, ms per
-               gradient step eager and in a block, the wall time split
-               into collect, update and evaluate, and the device's idle
-               share over one update block (``torch.profiler``).
+               before and read after (> 0); PPO (Armol-P) at its
+               defaults through ``run_ppo`` (8 lanes, 3 epochs of 1000
+               steps) held to the reference's PPO band and required to
+               beat the Random-N row's AP50, with its IoU launches counted, one minibatch step card vs CPU and
+               ``update_from_rollout`` equal to its eager minibatch steps;
+               one SAC epoch with a host-mode ``DeviceReplayBuffer`` (rows
+               gathered on the card) bit-equal to the numpy buffer's run,
+               then collect + update timed for the numpy buffer and the
+               torch-index mode; then one TD3 epoch; and one tab2 flush
+               served with an ``Obs`` serving log, bit-equal to the flush
+               without, one record per request.  The ``[train]`` lines
+               give those launches, env steps/s, ms per gradient step
+               eager and in a block, the wall time split into collect,
+               update and evaluate, and the device's idle share over one
+               update block (``torch.profiler``).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -1030,15 +1040,27 @@ TRAIN = dict(lanes=8, epochs=3, steps_per_epoch=1000, batch_size=256,
              update_iters=50, buffer_capacity=100_000)
 TRAIN_BETA, TRAIN_SEED, BLOCK_K = -0.03, 0, 50
 # The JAX reference at this protocol on the same 5000 traces, agent and
-# driver seeds 0, 1, 2, episode seed s + 1, on a CPU:
-#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py
-REF_AP50 = (36.3107051521112, 33.67579389140673, 28.962018987250055)
-REF_COST = (2.4793333333333334, 2.448, 2.376)
+# driver seeds 0-4, episode seed s + 1, on a CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py \
+#       --algo sac --seeds 0 1 2 3 4
+REF_AP50 = (36.3107051521112, 33.67579389140673, 28.962018987250055,
+            35.65720011572118, 30.54994136274477)
+REF_COST = (2.4793333333333334, 2.448, 2.376, 2.417333333333333, 2.25)
+# PPO (Armol-P) at its defaults (hidden 256x256, minibatch 256, 4 update
+# epochs, lr 1e-4) through run_ppo, 8 lanes, 3 epochs of 1000 steps, on
+# the same env, agent seeds 0-4, episode seed s + 1, on a CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py \
+#       --algo ppo --seeds 0 1 2 3 4
+PPO_TRAIN = dict(lanes=8, epochs=3, steps_per_epoch=1000)
+REF_PPO_AP50 = (29.695863605853518, 40.09803004172767, 27.75792281077858,
+                33.3865385733132, 24.79293186851022)
+REF_PPO_COST = (2.191333333333333, 2.7786666666666666, 1.9093333333333333,
+                2.3953333333333333, 1.776)
 # The band the port's seed-0 run must fall in: a 95% prediction interval
 # for one more draw from the reference's spread (its initial weights and
 # noise streams differ from the reference's, as another seed's would),
-# mean +- t(0.975, 2 df) * sd * sqrt(1 + 1/3).
-T_975_DF2 = 4.303
+# mean +- t(0.975, n - 1 df) * sd * sqrt(1 + 1/n) over the n = 5 seeds.
+T_975_DF4 = 2.776
 # Its baseline rows on the same env (numpy paths, so the port's are
 # expected equal to the last bit): (AP50, cost).
 REF_ROWS = {"randomN": (20.024240781576854, 1.62),
@@ -1113,6 +1135,38 @@ def replay_batches(env, k: int, seed: int) -> dict:
             "d": (rng.random(lead) > 0.9).astype(np.float32)}
 
 
+def step_errors(gpu, cpu, nets, lr: float, label: str) -> tuple:
+    """After one step from the same state on the card and on the CPU:
+    the largest gradient error (read from Adam's first moment, 0.1 * g
+    after one step), the largest parameter or second-moment error outside
+    the near-zero-gradient entries, the count of those entries (each
+    within 2 * lr, else this raises) and the count of all entries."""
+    grad_err, param_err, loose, n_el = 0.0, 0.0, 0, 0
+    for net in nets:
+        og, oc = getattr(gpu, f"opt_{net}"), getattr(cpu, f"opt_{net}")
+        if int(og.step) != int(oc.step):
+            raise AssertionError(f"{label} step: opt_{net} steps differ")
+        for pg, pc, mug, muc, nug, nuc in zip(
+                getattr(gpu, net).parameters(),
+                getattr(cpu, net).parameters(), og.mu, oc.mu, og.nu,
+                oc.nu):
+            n_el += pc.numel()
+            gc, gg = muc / 0.1, mug.cpu() / 0.1
+            grad_err = max(grad_err, float(
+                ((gg - gc).abs() / (1.0 + gc.abs())).max()))
+            param_err = max(param_err, float((nug.cpu() - nuc).abs().max()))
+            diff = (pg.detach().cpu() - pc.detach()).abs()
+            far = diff > STEP_TIGHT
+            if (gc[far].abs() > STEP_GRAD_TOL).any() or \
+                    float(diff.max()) > 2 * lr + STEP_TIGHT:
+                raise AssertionError(f"{label} step: {net} off by "
+                                     f"{float(diff.max())}")
+            loose += int(far.sum())
+            if (~far).any():
+                param_err = max(param_err, float(diff[~far].max()))
+    return grad_err, param_err, loose, n_el
+
+
 def step_card_vs_cpu(env, dev) -> dict:
     """One SAC and one TD3 update at full width from the same initial
     state (both drawn from the seed on the CPU), the same batch and the
@@ -1139,30 +1193,9 @@ def step_card_vs_cpu(env, dev) -> dict:
                         else draws[0])
         loss_err = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k]))
                        for k in mc)
-        grad_err, param_err, targ_err, loose, n_el = 0.0, 0.0, 0.0, 0, 0
-        for net in ("actor", "q1", "q2"):
-            og, oc = getattr(gpu, f"opt_{net}"), getattr(cpu, f"opt_{net}")
-            if int(og.step) != int(oc.step):
-                raise AssertionError(f"{algo} step: opt_{net} steps differ")
-            for pg, pc, mug, muc, nug, nuc in zip(
-                    getattr(gpu, net).parameters(),
-                    getattr(cpu, net).parameters(), og.mu, oc.mu, og.nu,
-                    oc.nu):
-                n_el += pc.numel()
-                gc, gg = muc / 0.1, mug.cpu() / 0.1
-                grad_err = max(grad_err, float(
-                    ((gg - gc).abs() / (1.0 + gc.abs())).max()))
-                param_err = max(param_err, float(
-                    (nug.cpu() - nuc).abs().max()))
-                diff = (pg.detach().cpu() - pc.detach()).abs()
-                far = diff > STEP_TIGHT
-                if (gc[far].abs() > STEP_GRAD_TOL).any() or \
-                        float(diff.max()) > 2 * lr + STEP_TIGHT:
-                    raise AssertionError(f"{algo} step: {net} off by "
-                                         f"{float(diff.max())}")
-                loose += int(far.sum())
-                if (~far).any():
-                    param_err = max(param_err, float(diff[~far].max()))
+        grad_err, param_err, loose, n_el = step_errors(
+            gpu, cpu, ("actor", "q1", "q2"), lr, algo)
+        targ_err = 0.0
         for net in ("q1_targ", "q2_targ", "actor_targ"):
             if hasattr(cpu, net):
                 for pg, pc in zip(getattr(gpu, net).parameters(),
@@ -1316,13 +1349,317 @@ def train_run(env, algo: str, dev, epochs: int) -> dict:
 
 
 def band(values) -> tuple:
-    """The 95% prediction interval of one more draw from ``values`` (3
+    """The 95% prediction interval of one more draw from ``values`` (5
     reference seeds)."""
     import math
     import statistics
     m, sd = statistics.mean(values), statistics.stdev(values)
-    half = T_975_DF2 * sd * math.sqrt(1 + 1 / len(values))
+    half = T_975_DF4 * sd * math.sqrt(1 + 1 / len(values))
     return m - half, m + half
+
+
+def make_ppo(env, dev, seed: int = TRAIN_SEED):
+    from repro_torch.core.ppo import PPO, PPOConfig
+    return PPO(PPOConfig(state_dim=env.state_dim,
+                         n_providers=env.n_providers, seed=seed), device=dev)
+
+
+def ppo_tensors(agent) -> dict:
+    out = {}
+    for name in ("actor", "critic"):
+        for k, p in getattr(agent, name).named_parameters():
+            out[f"{name}.{k}"] = p.detach()
+        opt = getattr(agent, f"opt_{name}")
+        out[f"opt_{name}.step"] = opt.step
+        for i, (m, v) in enumerate(zip(opt.mu, opt.nu)):
+            out[f"opt_{name}.mu{i}"], out[f"opt_{name}.nu{i}"] = m, v
+    return out
+
+
+def ppo_rollout(env, agent, n: int, seed: int) -> dict:
+    """A (n, ...) rollout of the env's real states and random protos,
+    advantages and returns; every other row's old log-density is the
+    current policy's (ratio 1, where the surrogate's terms tie), the rest
+    off by N(0, 0.1) (some clipped)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ppo import log_prob
+    rng = np.random.default_rng(seed)
+    s = env.features[rng.integers(0, len(env.features), n)]
+    proto = (rng.random((n, env.n_providers)) * 0.9 + 0.05).astype(
+        np.float32)
+    with torch.no_grad():
+        logp = log_prob(agent.actor, torch.from_numpy(s).to(agent.device),
+                        torch.from_numpy(proto).to(agent.device)
+                        ).cpu().numpy()
+    logp = logp + np.where(np.arange(n) % 2, rng.normal(0, 0.1, n), 0.0)
+    return {"s": s, "proto": proto, "logp": logp.astype(np.float32),
+            "adv": rng.standard_normal(n).astype(np.float32),
+            "ret": rng.standard_normal(n).astype(np.float32)}
+
+
+def ppo_step_card_vs_cpu(env, dev) -> dict:
+    """One PPO ``update_minibatch`` at full width (hidden 256x256,
+    minibatch 256) from the same initial state on the card and on the
+    CPU: losses within STEP_LOSS_TOL, gradients within STEP_GRAD_TOL,
+    parameters and second moments within STEP_TIGHT but where the
+    gradient is within STEP_GRAD_TOL of 0 (those counted, within
+    2 * lr)."""
+    import numpy as np
+    gpu, cpu = make_ppo(env, dev), make_ppo(env, "cpu")
+    mb = ppo_rollout(env, cpu, TRAIN["batch_size"], seed=15)
+    mb["w"] = np.ones(TRAIN["batch_size"], np.float32)
+    mg, mc = gpu.update_minibatch(mb), cpu.update_minibatch(mb)
+    loss_err = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])) for k in mc)
+    grad_err, param_err, loose, n_el = step_errors(
+        gpu, cpu, ("actor", "critic"), cpu.cfg.lr, "ppo")
+    log(f"[train] one ppo minibatch step at full width (hidden 256x256, "
+        f"minibatch 256), card vs CPU: losses {json.dumps(mc)} max rel err "
+        f"{loss_err:.3g}, gradients max err {grad_err:.3g}, parameters and "
+        f"moments max abs err {param_err:.3g} ({loose} of {n_el} parameter "
+        f"entries beyond {STEP_TIGHT}, all at gradients within "
+        f"{STEP_GRAD_TOL} of 0)")
+    if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL
+            and param_err <= STEP_TIGHT):
+        raise AssertionError("ppo step: card and CPU disagree")
+    return {"loss_rel_err": loss_err, "grad_err": grad_err,
+            "param_err": param_err, "loose_entries": loose, "entries": n_el}
+
+
+def ppo_rollout_vs_eager(env, dev) -> dict:
+    """``update_from_rollout`` of a 1000-row rollout (one epoch of 8 lanes
+    x 125 ticks) on the card against the same K minibatch steps as eager
+    ``update_minibatch`` calls on the card: every state tensor equal
+    (``torch.equal``).  Then ms per minibatch step, eager and in a block,
+    by host clock to a sync."""
+    import torch
+    fused, eager = make_ppo(env, dev), make_ppo(env, dev)
+    rollout = ppo_rollout(env, eager, 1000, seed=16)
+    m_fused = fused.update_from_rollout(rollout)
+    idx, w = eager._minibatch_plan(1000)
+    mbs = {k: v[idx] for k, v in rollout.items()}
+    mbs["w"] = w
+    steps = len(idx)
+    ms = [eager.update_minibatch({k: v[i] for k, v in mbs.items()})
+          for i in range(steps)]
+    te, tf = ppo_tensors(eager), ppo_tensors(fused)
+    bad = [k for k in te if not torch.equal(te[k], tf[k])]
+    if bad or ms[-1] != m_fused:
+        raise AssertionError(f"ppo rollout update differs from eager: "
+                             f"{bad or (ms[-1], m_fused)}")
+    times = {}
+    for label, fn in (
+            ("eager", lambda: [eager.update_minibatch(
+                {k: v[i] for k, v in mbs.items()}) for i in range(steps)]),
+            ("block", lambda: fused.update_minibatches(mbs))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) * 1e3 / steps
+    log(f"[train] ppo update_from_rollout (K={steps} minibatches of 256) "
+        f"== {steps} eager update_minibatch calls on the card (torch.equal "
+        f"on {len(te)} state tensors and the last metrics); ms per "
+        f"minibatch step eager {times['eager']:.4f}, block "
+        f"{times['block']:.4f}")
+    return {"steps": steps, **times}
+
+
+def ppo_run(env, dev) -> dict:
+    """``run_ppo`` at the PPO_TRAIN protocol: the IoU kernel's launches
+    zeroed just before and read just after, wall time split into collect
+    (acting, env steps and GAE), update (``update_from_rollout``) and
+    evaluate (the per-epoch test episodes)."""
+    import torch
+    from repro_torch.core import loops
+    from repro_torch.kernels.iou_matrix import ops
+    agent = make_ppo(env, dev)
+    with Stopwatch(agent, "update_from_rollout") as upd, \
+            Stopwatch(loops, "evaluate_policy") as ev:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = loops.run_ppo(agent, env, log=log, **PPO_TRAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.LAUNCHES
+    steps = PPO_TRAIN["epochs"] * PPO_TRAIN["steps_per_epoch"]
+    mb_steps = PPO_TRAIN["epochs"] * len(agent._minibatch_plan(
+        PPO_TRAIN["steps_per_epoch"])[0])
+    collect = wall - upd.seconds - ev.seconds
+    return {"history": hist, "launches": launches, "steps": steps,
+            "wall_s": wall, "update_s": upd.seconds,
+            "evaluate_s": ev.seconds, "collect_s": collect,
+            "env_steps_per_s": steps / wall,
+            "collect_steps_per_s": steps / collect,
+            "ms_per_minibatch_step": upd.seconds * 1e3 / mb_steps,
+            "minibatch_steps": mb_steps}
+
+
+def ppo_phase(served_env, dev) -> dict:
+    t0 = time.perf_counter()
+    env = training_env(served_env, TRAIN_SEED + 1, dev)
+    step = ppo_step_card_vs_cpu(env, dev)
+    block = ppo_rollout_vs_eager(env, dev)
+    run = ppo_run(env, dev)
+    last = run["history"][-1]
+    ap_band, cost_band = band(REF_PPO_AP50), band(REF_PPO_COST)
+    log(f"[train] PPO final test AP50 {last['ap50']} cost {last['cost']}; "
+        f"the reference's band (95% prediction interval of seeds 0-4): AP50 "
+        f"{ap_band}, cost {cost_band}")
+    if run["launches"] <= 0:
+        raise AssertionError("PPO training never launched the IoU kernel")
+    if not (ap_band[0] <= last["ap50"] <= ap_band[1]
+            and cost_band[0] <= last["cost"] <= cost_band[1]):
+        raise AssertionError("PPO's trained AP50 or cost is outside the "
+                             "reference's band")
+    # The band is wide (five seeds spread 24.8-40.1): it also holds the
+    # Random-N row's AP50, which every reference seed beats.  A policy
+    # that learned nothing must not pass.
+    floor = REF_ROWS["randomN"][0]
+    log(f"[train] PPO final test AP50 {last['ap50']} against the Random-N "
+        f"row's {floor} (every reference seed is above it)")
+    if not last["ap50"] > floor:
+        raise AssertionError("PPO's trained AP50 does not beat Random-N")
+    summary = {k: run[k] for k in (
+        "launches", "steps", "wall_s", "collect_s", "update_s",
+        "evaluate_s", "env_steps_per_s", "collect_steps_per_s",
+        "ms_per_minibatch_step", "minibatch_steps")}
+    summary.update({"ms_per_minibatch_step_eager": block["eager"],
+                    "ms_per_minibatch_step_block": block["block"],
+                    "ap50": last["ap50"], "cost": last["cost"],
+                    "counts": last["counts"],
+                    "seconds": time.perf_counter() - t0})
+    log(f"[train] ppo {json.dumps(summary)}")
+    return {"summary": summary, "step": step, "launches": run["launches"]}
+
+
+# The device-buffer runs: one SAC epoch at the TRAIN protocol over the
+# first REPLAY_IMAGES of the training split and of the test split (so
+# that each evaluation stays short).
+REPLAY_STEPS, REPLAY_IMAGES = 400, (280, 120)
+BUFFER_FIELDS = ("state", "action", "reward", "next_state", "done")
+
+
+def replay_run(env, dev, buffer) -> dict:
+    """One SAC epoch through ``run_off_policy`` with ``buffer`` (None:
+    the numpy buffer), the wall time split into collect, update (to a
+    sync after each block) and evaluate."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.core import loops
+    env = copy.copy(env)
+    env.rng = np.random.default_rng(TRAIN_SEED + 1)
+    env._lane_orders = []
+    agent = make_agent("sac", env, dev)
+    kw = dict(TRAIN, epochs=1, steps_per_epoch=REPLAY_STEPS)
+    with Stopwatch(agent, "update_block") as upd, \
+            Stopwatch(loops, "evaluate_policy") as ev:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = loops.run_off_policy(agent, env, seed=TRAIN_SEED, log=None,
+                                    buffer=buffer, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"history": [{k: v for k, v in h.items() if k != "wall_s"}
+                        for h in hist],
+            "collect_s": wall - upd.seconds - ev.seconds,
+            "update_s": upd.seconds, "evaluate_s": ev.seconds,
+            "wall_s": wall}
+
+
+def replay_phase(served_env, dev) -> dict:
+    """The device-resident replay buffer on the card: a SAC epoch with the
+    numpy buffer and with a host-mode ``DeviceReplayBuffer`` (rows
+    gathered from ``env.device_features()``) store the same transitions
+    and give the same history, bit for bit; then collect + update timed
+    for the numpy buffer and for ``index_mode="torch"`` in this call."""
+    from repro_torch.core.device_replay import DeviceReplayBuffer
+    from repro_torch.core.replay_buffer import ReplayBuffer
+    t0 = time.perf_counter()
+    env = training_env(served_env, TRAIN_SEED + 1, dev)
+    env.train_idx = env.train_idx[:REPLAY_IMAGES[0]]
+    env.test_idx = env.test_idx[:REPLAY_IMAGES[1]]
+    cap = TRAIN["buffer_capacity"]
+
+    def device_buffer(mode):
+        return DeviceReplayBuffer(cap, env.state_dim, env.n_providers,
+                                  seed=TRAIN_SEED, index_mode=mode,
+                                  feature_table=env.device_features(),
+                                  device=dev)
+    bufs = {"numpy": ReplayBuffer(cap, env.state_dim, env.n_providers,
+                                  seed=TRAIN_SEED),
+            "host": device_buffer("host")}
+    runs = {k: replay_run(env, dev, b) for k, b in bufs.items()}
+    a, b = bufs["numpy"], bufs["host"]
+    bad = [f for f in BUFFER_FIELDS
+           if not (getattr(a, f) == getattr(b, f)).all()]
+    if bad or (a.ptr, a.size) != (b.ptr, b.size) or \
+            runs["numpy"]["history"] != runs["host"]["history"]:
+        raise AssertionError(f"the host-mode device buffer's run differs "
+                             f"from the numpy buffer's: {bad}")
+    timed = {"numpy": replay_run(env, dev, None),
+             "torch": replay_run(env, dev, device_buffer("torch"))}
+    out = {"transitions": int(a.size), "parity_seconds": sum(
+        r["wall_s"] for r in runs.values())}
+    for k, r in timed.items():
+        out[k] = {f: r[f] for f in ("collect_s", "update_s", "evaluate_s",
+                                    "wall_s")}
+        out[k]["collect_update_s"] = r["collect_s"] + r["update_s"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] device replay buffer on the card: a SAC epoch of "
+        f"{REPLAY_STEPS} steps (8 lanes, {REPLAY_IMAGES[0]} train and "
+        f"{REPLAY_IMAGES[1]} test images) with index_mode='host' and "
+        f"on-device row gathers == the numpy buffer's run (the "
+        f"{len(BUFFER_FIELDS)} fields of {out['transitions']} transitions "
+        f"and the history, bit for bit); timed numpy vs index_mode='torch' "
+        f"(update to a sync after each block): {json.dumps(out)}")
+    return out
+
+
+def obs_flush(run: dict) -> dict:
+    """One tab2 flush of FLUSH requests through ``FederationService`` with
+    an ``Obs`` serving log and without: the same results, bit for bit, and
+    one log record per request."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.obs import Obs, read_serving_log
+    from repro_torch.serving.federation_service import FederationService
+    svc, reqs = run["svc"], run["first_reqs"]
+    env = svc.env
+    t0 = time.perf_counter()
+    bare = FederationService(env, svc.agent).handle_many(reqs)
+    t_bare = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        obs = Obs(d)
+        obs.open_serving_log([p.name for p in env.traces.providers],
+                             env.traces.gts)
+        t0 = time.perf_counter()
+        got = FederationService(env, svc.agent, obs=obs).handle_many(reqs)
+        t_obs = time.perf_counter() - t0
+        obs.close()
+        recs = read_serving_log(os.path.join(d, "serving_log.jsonl"))
+    for x, y in zip(bare, got):
+        same = (np.array_equal(x.action, y.action)
+                and x.cost_milli_usd == y.cost_milli_usd
+                and x.latency_ms == y.latency_ms
+                and all(np.array_equal(getattr(x.detections, f),
+                                       getattr(y.detections, f))
+                        for f in ("boxes", "scores", "labels")))
+        if not same:
+            raise AssertionError("the flush with obs on differs from the "
+                                 "flush with obs off")
+    if len(bare) != len(got) or len(recs) != len(reqs) or \
+            [r["img"] for r in recs] != list(reqs):
+        raise AssertionError(f"serving log holds {len(recs)} records for "
+                             f"{len(reqs)} requests")
+    out = {"requests": len(reqs), "records": len(recs),
+           "flush_s_obs_off": t_bare, "flush_s_obs_on": t_obs}
+    log(f"[obs] one tab2 flush with a serving log == the flush without, "
+        f"bit for bit, one record per request: {json.dumps(out)}")
+    return out
 
 
 def train_phase(served_env, dev) -> dict:
@@ -1344,7 +1681,7 @@ def train_phase(served_env, dev) -> dict:
     last = sac["history"][-1]
     ap_band, cost_band = band(REF_AP50), band(REF_COST)
     log(f"[train] SAC final test AP50 {last['ap50']} cost {last['cost']}; "
-        f"the reference's band (95% prediction interval of seeds 0-2): AP50 "
+        f"the reference's band (95% prediction interval of seeds 0-4): AP50 "
         f"{ap_band}, cost {cost_band}")
     if sac["launches"] <= 0:
         raise AssertionError("training never launched the IoU kernel")
@@ -1364,6 +1701,9 @@ def train_phase(served_env, dev) -> dict:
         if name in REF_ROWS and (r["ap50"], r["cost"]) != REF_ROWS[name]:
             raise AssertionError(f"{name}: {(r['ap50'], r['cost'])} is not "
                                  f"the reference's {REF_ROWS[name]}")
+
+    ppo = ppo_phase(served_env, dev)
+    replay = replay_phase(served_env, dev)
 
     td3 = train_run(training_env(served_env, TRAIN_SEED + 1, dev), "td3",
                     dev, 1)
@@ -1387,8 +1727,9 @@ def train_phase(served_env, dev) -> dict:
         "td3_wall_s": td3["wall_s"]}
     log(f"[train] {json.dumps(summary)}")
     log(f"[train] phase 6 in {time.perf_counter() - t_phase:.1f}s")
-    return {"summary": summary, "step": step, "idle": idle,
-            "launches": sac["launches"] + td3["launches"]}
+    return {"summary": summary, "step": step, "idle": idle, "ppo": ppo,
+            "replay": replay, "launches": sac["launches"] + td3["launches"],
+            "launches_ppo": ppo["launches"]}
 
 
 def main() -> int:
@@ -1481,6 +1822,7 @@ def main() -> int:
     # 6. Armol's selector trained on the phase-3 traces
     torch.cuda.empty_cache()
     train = train_phase(main3["svc"].env, dev)
+    obs_flush(main3)
 
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -1493,10 +1835,12 @@ def main() -> int:
         "name": "iou_matrix", "route": "cuda",
         "source": "src/repro_torch/kernels/iou_matrix/csrc/iou_matrix.cu",
         "replaces": "src/repro/kernels/iou_matrix/kernel.py:19",
-        "launches": main3["launches"] + tab3["launches"] + train["launches"],
+        "launches": main3["launches"] + tab3["launches"] + train["launches"]
+        + train["launches_ppo"],
         "launches_tab2": main3["launches"],
         "launches_tab3": tab3["launches"],
         "launches_train": train["launches"],
+        "launches_train_ppo": train["launches_ppo"],
         "mismatches": iou["mismatches"],
         "max_abs_err": iou["max_abs_err"],
         "ms": timing["tab2"]["ms"], "plain_ms": timing["tab2"]["plain_ms"],

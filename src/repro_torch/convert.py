@@ -80,10 +80,13 @@ def _load_adamw(opt: AdamWState, jopt: Any, mlp: MLP) -> None:
         opt.step.fill_(int(np.asarray(_field(jopt, "step"))))
 
 
-def _agent_from_jax(state: Any, agent: Any, nets: Sequence[str]) -> Any:
+def _agent_from_jax(state: Any, agent: Any, nets: Sequence[str],
+                    opts: Sequence[str] = ("actor", "q1", "q2")) -> Any:
+    """Load the networks ``nets`` and the AdamW states ``opt_<name>`` of
+    the networks ``opts`` from a reference state into ``agent``."""
     for name in nets:
         actor_from_jax(_field(state, name), getattr(agent, name))
-    for name in ("actor", "q1", "q2"):
+    for name in opts:
         _load_adamw(getattr(agent, f"opt_{name}"),
                     _field(state, f"opt_{name}"), getattr(agent, name))
     return agent
@@ -107,6 +110,15 @@ def td3_state_from_jax(state: Any, agent: Any) -> Any:
                                    "q1_targ", "q2_targ"))
     agent.step.fill_(int(np.asarray(_field(state, "step"))))
     return agent
+
+
+def ppo_state_from_jax(state: Any, agent: Any) -> Any:
+    """The reference's ``PPOState`` (numpy leaves) into a port ``PPO`` in
+    place: the actor, the V critic, ``opt_actor`` and ``opt_critic``
+    (moments transposed like the weights) and their steps.  The PRNG key
+    is not carried over: the port acts from its own generator."""
+    return _agent_from_jax(state, agent, ("actor", "critic"),
+                           ("actor", "critic"))
 
 
 def feature_extractor_from_jax(params: Mapping) -> FeatureExtractor:

@@ -29,8 +29,11 @@ At ``lanes=1`` the multi-lane driver consumes every random stream (env
 shuffles, exploration draws, buffer sampling, the agent's generator) in
 the sequential order and keeps the sequential (D,) act shape, so its
 transition stream and evaluation history are bit-identical to the
-sequential driver's.  PPO's drivers, the observability hook and the
-device-resident replay buffer are not ported.
+sequential driver's.
+
+Two PPO drivers, likewise: ``run_ppo_sequential`` (one act and one
+``env.step`` per transition) and ``run_ppo`` (L lanes per tick, per-lane
+GAE, one ``update_from_rollout`` per epoch), bit-identical at L=1.
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core.ppo import PPO
 from repro_torch.core.replay_buffer import ReplayBuffer
+from repro_torch.device import same_device
 from repro_torch.ensemble.metrics import ap50, coco_map
 from repro_torch.federation.env import ArmolEnv
 from repro_torch.federation.evaluation import mask_to_action, popcount_masks
@@ -191,7 +196,8 @@ def run_off_policy(agent, env: ArmolEnv, *, lanes: int = 1, epochs: int = 5,
                    update_every: int = 50, update_iters: int = 50,
                    buffer_capacity: int = 100_000, seed: int = 0,
                    log: Optional[Callable[[str], None]] = print,
-                   buffer: Optional[ReplayBuffer] = None) -> List[Dict]:
+                   buffer: Optional[ReplayBuffer] = None,
+                   obs=None) -> List[Dict]:
     """Multi-lane off-policy driver.
 
     ``lanes`` parallel episode cursors advance through
@@ -202,16 +208,40 @@ def run_off_policy(agent, env: ArmolEnv, *, lanes: int = 1, epochs: int = 5,
     ``steps_per_epoch`` counts transitions (rounded up to whole ticks).
     With ``lanes=1`` the transition stream and history are bit-identical
     to ``run_offpolicy_sequential``.
+
+    A ``DeviceReplayBuffer`` as ``buffer`` keeps replay on the agent's
+    device: with a feature table attached, state rows are gathered there
+    from the image indices ``step_lanes`` reports (``add_batch_indexed``),
+    ``sample_block`` gathers device tensors, and the driver never reads a
+    block's metrics back (``update_block(blk, sync=False)``).  In the
+    buffer's ``index_mode="host"`` the run is bit-identical to the numpy
+    buffer's.  A device buffer on another device than the agent raises.
+
+    ``obs`` (a ``repro_torch.obs.Obs``) records ``train.tick_ms``,
+    ``train.update_block_ms``, ``train.replay_occupancy`` and
+    ``train.update_iters`` and one ``epoch`` event per epoch.  They are
+    host clocks only, with no device sync: where the block runs with
+    ``sync=False`` its time is the time to dispatch it.  Results are
+    bit-identical with obs on or off.
     """
     if lanes < 1:
         raise ValueError(f"lanes must be >= 1, got {lanes}")
+    obs_on = obs is not None and obs.enabled
+    if obs_on:
+        h_tick = obs.metrics.histogram("train.tick_ms")
+        h_blk = obs.metrics.histogram("train.update_block_ms")
+        g_occ = obs.metrics.gauge("train.replay_occupancy")
+        c_upd = obs.metrics.counter("train.update_iters")
     rng = np.random.default_rng(seed)
     buf = buffer if buffer is not None else \
         _new_buffer(env, buffer_capacity, seed)
-    if getattr(buf, "device_resident", False):
-        raise NotImplementedError(
-            "a device-resident replay buffer is not ported yet; pass a "
-            "repro_torch.core.replay_buffer.ReplayBuffer")
+    device_buf = bool(getattr(buf, "device_resident", False))
+    indexed_writes = bool(getattr(buf, "indexed", False))
+    if device_buf:
+        want = getattr(agent, "device", env.device)
+        if not same_device(buf.device, want):
+            raise ValueError(f"the replay buffer lives on {buf.device}, "
+                             f"the agent on {want}")
     update_block = getattr(agent, "update_block", None)
     select_many = _make_batch_select(agent, deterministic=False)
     n = env.n_providers
@@ -221,6 +251,7 @@ def run_off_policy(agent, env: ArmolEnv, *, lanes: int = 1, epochs: int = 5,
     for epoch in range(epochs):
         t0 = time.time()
         for _ in range(-(-steps_per_epoch // lanes)):
+            tick_t0 = time.monotonic() if obs_on else 0.0
             explore = (total + np.arange(lanes)) < start_steps
             acts = np.zeros((lanes, n), np.float32)
             for lane in np.flatnonzero(explore):
@@ -237,7 +268,14 @@ def run_off_policy(agent, env: ArmolEnv, *, lanes: int = 1, epochs: int = 5,
             elif len(on_policy):
                 acts[on_policy] = select_many(states[on_policy])
             nxt, r, dones, infos, carry = env.step_lanes(acts)
-            buf.add_batch(states, acts, r, nxt, dones.astype(np.float32))
+            d = dones.astype(np.float32)
+            if indexed_writes:
+                # states and nxt are the feature rows of these images
+                # (step_lanes' contract): only indices cross to the device
+                buf.add_batch_indexed(infos["image"], acts, r,
+                                      infos["next_image"], d)
+            else:
+                buf.add_batch(states, acts, r, nxt, d)
             states = carry
             prev, total = total, total + lanes
             for k in range(prev // update_every + 1,
@@ -250,16 +288,136 @@ def run_off_policy(agent, env: ArmolEnv, *, lanes: int = 1, epochs: int = 5,
                         f"update is scheduled at step {k * update_every} "
                         "but no transitions have been stored "
                         f"(update_after={update_after})")
-                if update_block is not None:
-                    update_block(buf.sample_block(update_iters, batch_size))
-                else:
+                blk_t0 = time.monotonic() if obs_on else 0.0
+                if update_block is None:
                     for _ in range(update_iters):
                         agent.update(buf.sample(batch_size))
+                elif device_buf:
+                    update_block(buf.sample_block(update_iters, batch_size),
+                                 sync=False)
+                else:
+                    update_block(buf.sample_block(update_iters, batch_size))
+                if obs_on:
+                    c_upd.inc(update_iters)
+                    h_blk.observe((time.monotonic() - blk_t0) * 1e3)
+            if obs_on:
+                g_occ.set(len(buf))
+                h_tick.observe((time.monotonic() - tick_t0) * 1e3)
         res = evaluate_policy(agent_policy(agent), env)
         res.update({"epoch": epoch, "steps": total,
                     "wall_s": round(time.time() - t0, 1)})
         history.append(res)
+        if obs_on:
+            obs.event("epoch", epoch=epoch, steps=total, ap50=res["ap50"],
+                      cost=res["cost"], wall_s=res["wall_s"])
         _log_epoch(log, f"{type(agent).__name__}x{lanes}", res)
+    return history
+
+
+# ---------------------------------------------------------------------------
+# On-policy drivers (PPO)
+# ---------------------------------------------------------------------------
+
+def _log_ppo(log, tag: str, res: Dict) -> None:
+    if log:
+        log(f"[{tag}] epoch {res['epoch']}: AP50={res['ap50']:.2f} "
+            f"cost={res['cost']:.3f}")
+
+
+def run_ppo_sequential(agent: PPO, env: ArmolEnv, *, epochs: int = 5,
+                       steps_per_epoch: int = 500,
+                       log: Optional[Callable[[str], None]] = print
+                       ) -> List[Dict]:
+    """The scalar PPO driver, the parity reference of ``run_ppo``: one
+    act and one env step per transition, GAE and one rollout update per
+    epoch."""
+    history = []
+    s = env.reset(split="train")
+    for epoch in range(epochs):
+        t0 = time.time()
+        S, P, LP, R, D, V = [], [], [], [], [], []
+        for _ in range(steps_per_epoch):
+            a, proto, logp, v = agent.select_action(s)
+            s2, r, done, info = env.step(a)
+            S.append(s)
+            P.append(proto)
+            LP.append(logp)
+            R.append(r)
+            D.append(float(done))
+            V.append(v)
+            s = env.reset(split="train") if done else s2
+        _, _, _, last_v = agent.select_action(s)
+        adv, ret = agent.gae(np.asarray(R, np.float32),
+                             np.asarray(V, np.float32),
+                             np.asarray(D, np.float32), last_v)
+        rollout = {"s": np.asarray(S, np.float32),
+                   "proto": np.asarray(P, np.float32),
+                   "logp": np.asarray(LP, np.float32),
+                   "adv": adv, "ret": ret}
+        agent.update_from_rollout(rollout)
+        res = evaluate_policy(agent_policy(agent), env)
+        res.update({"epoch": epoch, "wall_s": round(time.time() - t0, 1)})
+        history.append(res)
+        _log_ppo(log, "PPO", res)
+    return history
+
+
+def run_ppo(agent: PPO, env: ArmolEnv, *, lanes: int = 1, epochs: int = 5,
+            steps_per_epoch: int = 500,
+            log: Optional[Callable[[str], None]] = print) -> List[Dict]:
+    """Multi-lane PPO driver: L lanes collected tick by tick through one
+    batched act and one batched env evaluation, per-lane GAE against each
+    lane's own done flags, and the whole rollout in one
+    ``update_from_rollout``.  Rollout rows are flattened time-major, and
+    at ``lanes=1`` the act runs on the (D,) state (matvec and matmul round
+    differently), so ``lanes=1`` reproduces ``run_ppo_sequential`` bit
+    for bit.  The driver draws no randomness of its own."""
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    n = env.n_providers
+    history = []
+    states = env.reset_lanes(lanes, split="train")
+    for epoch in range(epochs):
+        t0 = time.time()
+        ticks = -(-steps_per_epoch // lanes)
+        S = np.zeros((ticks, lanes, env.state_dim), np.float32)
+        P = np.zeros((ticks, lanes, n), np.float32)
+        LP = np.zeros((ticks, lanes), np.float32)
+        R = np.zeros((ticks, lanes), np.float32)
+        D = np.zeros((ticks, lanes), np.float32)
+        V = np.zeros((ticks, lanes), np.float32)
+        for t in range(ticks):
+            S[t] = states
+            if lanes == 1:
+                a, P[t, 0], LP[t, 0], V[t, 0] = agent.select_action(
+                    states[0])
+                acts = a[None]
+            else:
+                acts, P[t], LP[t], V[t] = agent.select_action_batch(states)
+            nxt, r, dones, infos, carry = env.step_lanes(acts)
+            R[t] = r
+            D[t] = dones
+            states = carry
+        if lanes == 1:
+            last_v = np.asarray([agent.select_action(states[0])[3]],
+                                np.float32)
+        else:
+            last_v = np.asarray(agent.select_action_batch(states)[3],
+                                np.float32)
+        adv = np.zeros((ticks, lanes), np.float32)
+        ret = np.zeros((ticks, lanes), np.float32)
+        for lane in range(lanes):
+            adv[:, lane], ret[:, lane] = agent.gae(
+                R[:, lane], V[:, lane], D[:, lane], float(last_v[lane]))
+        rollout = {"s": S.reshape(ticks * lanes, -1),
+                   "proto": P.reshape(ticks * lanes, -1),
+                   "logp": LP.reshape(-1),
+                   "adv": adv.reshape(-1), "ret": ret.reshape(-1)}
+        agent.update_from_rollout(rollout)
+        res = evaluate_policy(agent_policy(agent), env)
+        res.update({"epoch": epoch, "wall_s": round(time.time() - t0, 1)})
+        history.append(res)
+        _log_ppo(log, f"PPOx{lanes}", res)
     return history
 
 

@@ -25,3 +25,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether two devices name the same one (``cuda`` is the current
+    CUDA device, so it equals ``cuda:0`` there)."""
+    def canon(dev) -> torch.device:
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return dev
+    return canon(a) == canon(b)

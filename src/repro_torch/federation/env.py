@@ -75,6 +75,19 @@ class ArmolEnv:
         self._lane_orders: list = []
         self._lane_t = np.zeros(0, np.int64)
         self._lane_split = ("train", True)
+        self._features_dev: Optional[torch.Tensor] = None
+
+    # ------------------------------------------------------------------
+    # device mirror: the per-image state features as a float32 tensor on
+    # ``self.device``, built on first use and cached.  The device-resident
+    # training path gathers replay rows from it
+    # (``DeviceReplayBuffer.add_batch_indexed``).
+    # ------------------------------------------------------------------
+    def device_features(self) -> torch.Tensor:
+        if self._features_dev is None:
+            self._features_dev = torch.tensor(
+                np.asarray(self.features, np.float32), device=self.device)
+        return self._features_dev
 
     def _conv_features(self, images: np.ndarray, feat_dim: int
                        ) -> np.ndarray:

@@ -16,6 +16,9 @@ so that length must be at most the SSM chunk or a multiple of it.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --full --requests 8 --prompt-len 1024 --new-tokens 16 --max-len 1040
 
+``--obs-dir DIR`` (federation) writes the serving log, one record per
+request, and the metrics there (``python -m repro_torch.launch.obs_report
+DIR`` renders them); results are bit-identical with or without it.
 ``--device cpu`` runs the plain PyTorch/numpy versions instead of the
 kernels; without it the run needs a GPU.
 """
@@ -42,7 +45,13 @@ def run_federation(args) -> int:
     agent = SAC(SACConfig(state_dim=env.state_dim,
                           n_providers=env.n_providers, seed=args.seed),
                 device=args.device)
-    svc = FederationService(env, agent)
+    obs = None
+    if args.obs_dir:
+        from repro_torch.obs import Obs
+        obs = Obs(args.obs_dir, seed=args.seed)
+        obs.open_serving_log([p.name for p in env.traces.providers],
+                             env.traces.gts)
+    svc = FederationService(env, agent, obs=obs)
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     reqs = [int(i) for i in rng.integers(0, args.images, args.requests)]
@@ -64,6 +73,12 @@ def run_federation(args) -> int:
     print(f"[serve] accounted cost={cost:.1f} mUSD, modeled latency "
           f"p50={np.percentile(lat, 50):.0f}ms "
           f"p99={np.percentile(lat, 99):.0f}ms")
+    if obs is not None:
+        obs.write_metrics()
+        obs.close()
+        print(f"[serve] observability artifacts in {args.obs_dir} "
+              f"(render: python -m repro_torch.launch.obs_report "
+              f"{args.obs_dir})")
     return 0
 
 
@@ -131,6 +146,11 @@ def main():
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obs-dir", default="",
+                    help="federation: write observability artifacts "
+                         "(metrics.json, serving_log.jsonl) to this "
+                         "directory; results are bit-identical with or "
+                         "without it")
     args = ap.parse_args()
     if args.requests is None:
         args.requests = 400 if args.federation else 8

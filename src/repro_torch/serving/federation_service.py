@@ -12,6 +12,10 @@ kernel launch on the GPU), then per-request assembly from the memoized
 subset-evaluation core.  Cost/latency accounting is vectorized over the
 whole flush; the empty selection returns an explicit zero-cost /
 zero-latency result.
+
+An ``obs`` handle (``repro_torch.obs.Obs``) with an open serving log gets
+one record per request (backend ``"sync"``, AP50 read off the subset
+core); results are bit-identical with or without it.
 """
 from __future__ import annotations
 
@@ -35,11 +39,13 @@ class FederationResult:
 
 class FederationService:
     def __init__(self, env: ArmolEnv, agent, *, deterministic: bool = True,
-                 transmission_ms: float = 20.0):
+                 transmission_ms: float = 20.0, obs=None):
         self.env = env
         self.agent = agent
         self.deterministic = deterministic
         self.transmission_ms = transmission_ms
+        # logging only copies values: results are the same with obs on
+        self.obs = obs
         self.provider_latency_ms = np.asarray(
             [p.latency_ms for p in env.traces.providers], np.float64)
         self._mask_weights = np.left_shift(
@@ -62,6 +68,21 @@ class FederationService:
                            self.transmission_ms * n_sel + inf_lat, 0.0)
         return acts, n_sel, masks, cost, latency
 
+    def _log_serving(self, imgs: Sequence[int], masks: Sequence[int],
+                     results: List[FederationResult]) -> None:
+        """Append one serving-log record per request of a flush, AP50 read
+        off the subset core's memo (when the log scores against ground
+        truth)."""
+        log = self.obs.serving_log
+        if log is None:
+            return
+        aps = None
+        if log.gts is not None:
+            aps = [self.env.core.ap50(int(i), int(m)) if m else 0.0
+                   for i, m in zip(imgs, masks)]
+        log.log_flush(imgs, masks, self.env.costs, results, backend="sync",
+                      aps=aps)
+
     def _account_batch(self, imgs: Sequence[int], actions: np.ndarray
                        ) -> List[FederationResult]:
         """Vectorized ensemble + cost/latency bookkeeping for one flush;
@@ -78,6 +99,8 @@ class FederationService:
             out.append(FederationResult(
                 core.ensemble(int(img), int(masks[t])), acts[t],
                 float(cost[t]), float(latency[t])))
+        if self.obs is not None:
+            self._log_serving(imgs, masks, out)
         return out
 
     def handle(self, img_idx: int) -> FederationResult:

@@ -442,3 +442,144 @@ def test_training_drives_the_iou_kernel(dev):
     for img, table in env.core._tables.items():
         b = torch.from_numpy(table.boxes)
         assert np.array_equal(table.iou, iou_matrix_torch(b, b).numpy())
+
+
+# ---------------------------------------------------------------------------
+# PPO and the device-resident replay buffer on the card
+# ---------------------------------------------------------------------------
+
+def _ppo(dev, state_dim=12, n=3):
+    from repro_torch.core.ppo import PPO, PPOConfig
+    return PPO(PPOConfig(state_dim=state_dim, n_providers=n, hidden=(64, 64),
+                         minibatch=32), device=dev)
+
+
+def _minibatches(rng, k, b=32, state_dim=12, n=3):
+    return {"s": rng.standard_normal((k, b, state_dim)).astype(np.float32),
+            "proto": (rng.random((k, b, n)) * 0.9 + 0.05).astype(np.float32),
+            "logp": rng.standard_normal((k, b)).astype(np.float32),
+            "adv": rng.standard_normal((k, b)).astype(np.float32),
+            "ret": rng.standard_normal((k, b)).astype(np.float32),
+            "w": np.ones((k, b), np.float32)}
+
+
+def _ppo_tensors(agent):
+    out = [p for m in (agent.actor, agent.critic) for p in m.parameters()]
+    for o in (agent.opt_actor, agent.opt_critic):
+        out += [o.step, *o.mu, *o.nu]
+    return out
+
+
+def test_ppo_minibatch_update_on_the_card_matches_the_cpu(dev):
+    """Same initial state (drawn on the CPU from the seed) and minibatch:
+    losses within 1e-5 and parameters within 1e-6 except where Adam's
+    sign-like first step meets a near-zero gradient (2 lr)."""
+    gpu, cpu = _ppo(dev), _ppo("cpu")
+    mb = {k: v[0] for k, v in _minibatches(np.random.default_rng(2),
+                                           1).items()}
+    mg, mc = gpu.update_minibatch(mb), cpu.update_minibatch(mb)
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(1.0, abs(mc[k])), k
+    for pg, pc in zip(_ppo_tensors(gpu), _ppo_tensors(cpu)):
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        assert float(diff.max()) <= 2 * cpu.cfg.lr + 1e-6
+
+
+def test_ppo_update_minibatches_equals_eager_on_the_card(dev):
+    eager, fused = _ppo(dev), _ppo(dev)
+    mbs = _minibatches(np.random.default_rng(3), 6)
+    ms = [eager.update_minibatch({k: v[i] for k, v in mbs.items()})
+          for i in range(6)]
+    assert fused.update_minibatches(mbs) == ms[-1]
+    for x, y in zip(_ppo_tensors(eager), _ppo_tensors(fused)):
+        assert torch.equal(x, y)
+
+
+def test_device_buffer_on_the_card_equals_the_numpy_buffer(dev):
+    """Wraparound and B > capacity, plain and indexed writes, and the
+    host-mode sample stream: bit-equal to the numpy buffer."""
+    from repro_torch.core.device_replay import DeviceReplayBuffer
+    from repro_torch.core.replay_buffer import ReplayBuffer
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((30, 5)).astype(np.float32)
+    h = ReplayBuffer(16, 5, 3, seed=7)
+    d = DeviceReplayBuffer(16, 5, 3, seed=7, index_mode="host",
+                           feature_table=torch.from_numpy(table).to(dev),
+                           device=dev)
+    for B, indexed in ((5, False), (12, True), (1, False), (35, True),
+                       (9, False), (40, False)):
+        si, s2i = rng.integers(0, 30, B), rng.integers(0, 30, B)
+        a = rng.standard_normal((B, 3)).astype(np.float32)
+        r = rng.standard_normal(B).astype(np.float32)
+        dn = (rng.random(B) > 0.5).astype(np.float32)
+        h.add_batch(table[si], a, r, table[s2i], dn)
+        if indexed:
+            d.add_batch_indexed(si, a, r, s2i, dn)
+        else:
+            d.add_batch(table[si], a, r, table[s2i], dn)
+        for f in ("state", "action", "reward", "next_state", "done"):
+            assert np.array_equal(getattr(h, f), getattr(d, f)), (B, f)
+        assert (h.ptr, h.size) == (d.ptr, d.size)
+        bh, bd = h.sample_block(3, 8), d.sample_block(3, 8)
+        for k in bh:
+            assert bd[k].device.type == "cuda"
+            assert np.array_equal(bh[k], bd[k].cpu().numpy()), k
+    t = DeviceReplayBuffer(16, 5, 3, seed=7, device=dev)
+    t.add_batch(table[:10], a[:1].repeat(10, 0), np.arange(1.0, 11.0),
+                table[:10], np.zeros(10))
+    assert float(t.sample_block(4, 8)["r"].min()) >= 1.0
+
+
+def test_host_mode_device_buffer_run_on_the_card_equals_numpy_buffer(dev):
+    """``run_off_policy`` on the card with a host-mode device buffer (rows
+    gathered from the env's device features, blocks with ``sync=False``)
+    stores the transitions and gives the history of the numpy-buffer
+    run, bit for bit."""
+    import copy
+    from repro_torch.core.device_replay import DeviceReplayBuffer
+    from repro_torch.core.loops import run_off_policy
+    from repro_torch.core.replay_buffer import ReplayBuffer
+    from repro_torch.core.sac import SAC, SACConfig
+    from repro_torch.federation.env import ArmolEnv
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.federation.traces import generate_traces
+    env0 = ArmolEnv(generate_traces(default_providers(), 40, seed=0),
+                    mode="gt", beta=-0.03, seed=1, device=dev)
+    kw = dict(lanes=4, epochs=2, steps_per_epoch=40, batch_size=16,
+              start_steps=8, update_after=8, update_every=8,
+              update_iters=4, log=None, seed=5)
+    out = []
+    for device_buf in (False, True):
+        env = copy.copy(env0)
+        env.rng = np.random.default_rng(1)
+        agent = SAC(SACConfig(state_dim=env.state_dim, n_providers=3,
+                              hidden=(64, 64)), device=dev)
+        buf = DeviceReplayBuffer(
+            200, env.state_dim, 3, seed=5, index_mode="host",
+            feature_table=env.device_features(), device=dev) \
+            if device_buf else ReplayBuffer(200, env.state_dim, 3, seed=5)
+        hist = run_off_policy(agent, env, buffer=buf, **kw)
+        out.append((buf, [{k: v for k, v in h.items() if k != "wall_s"}
+                          for h in hist], agent))
+    (hb, hh, ha), (db, dh, da) = out
+    for f in ("state", "action", "reward", "next_state", "done"):
+        assert np.array_equal(getattr(hb, f), getattr(db, f)), f
+    assert hh == dh
+    for p, q in zip(ha.actor.parameters(), da.actor.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_ppo_training_drives_the_iou_kernel(dev):
+    from repro_torch.core.loops import run_ppo
+    from repro_torch.federation.env import ArmolEnv
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.federation.traces import generate_traces
+    from repro_torch.kernels.iou_matrix import ops
+    env = ArmolEnv(generate_traces(default_providers(), 40, seed=0),
+                   mode="gt", beta=-0.03, seed=1, device=dev)
+    agent = _ppo(dev, state_dim=env.state_dim)
+    ops.reset_launches()
+    hist = run_ppo(agent, env, lanes=4, epochs=1, steps_per_epoch=40,
+                   log=None)
+    assert ops.LAUNCHES > 0
+    assert np.isfinite(hist[-1]["ap50"]) and np.isfinite(hist[-1]["cost"])

@@ -33,7 +33,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     for m in ("repro_torch.models.model", "repro_torch.serving.engine",
               "repro_torch.core.td3", "repro_torch.core.blocks",
               "repro_torch.core.replay_buffer", "repro_torch.optim.adamw",
-              "repro_torch.launch.train",
+              "repro_torch.launch.train", "repro_torch.core.ppo",
+              "repro_torch.core.device_replay", "repro_torch.obs",
+              "repro_torch.launch.obs_report",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
               "repro_torch.configs.zamba2_2_7b"):
@@ -75,6 +77,8 @@ def test_no_source_file_imports_jax_or_repro():
 def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     """With no CUDA device the default device raises; ``device="cpu"``
     runs."""
+    from repro_torch.core.device_replay import DeviceReplayBuffer
+    from repro_torch.core.ppo import PPO, PPOConfig
     from repro_torch.core.sac import SAC, SACConfig
     from repro_torch.core.td3 import TD3, TD3Config
     from repro_torch.device import resolve_device
@@ -94,6 +98,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
                  lambda: ArmolEnv(tr),
                  lambda: SAC(SACConfig(state_dim=4, n_providers=3)),
                  lambda: TD3(TD3Config(state_dim=4, n_providers=3)),
+                 lambda: PPO(PPOConfig(state_dim=4, n_providers=3)),
+                 lambda: DeviceReplayBuffer(8, 4, 3),
                  lambda: batch_iou_matrices(boxes),
                  lambda: kernel_batch(boxes)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -105,6 +111,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
               device="cpu")
     assert sac.select_action(env.features[:2])[0].shape == (2, 3)
     assert kernel_batch(boxes, "cpu")[0].shape == (1, 1)
+    ppo = PPO(PPOConfig(state_dim=env.state_dim, n_providers=3),
+              device="cpu")
+    assert ppo.select_action_batch(env.features[:2])[0].shape == (2, 3)
+    buf = DeviceReplayBuffer(8, env.state_dim, 3, device="cpu",
+                             feature_table=env.device_features())
+    assert buf.device.type == "cpu" and buf.indexed
 
 
 def test_serve_cli_raises_without_gpu_and_runs_on_cpu():
@@ -130,14 +142,16 @@ def test_train_cli_raises_without_gpu_and_runs_on_cpu():
                          timeout=120)
     assert gpu.returncode != 0
     assert "no CUDA device" in gpu.stderr
-    for algo in ("sac", "td3"):
+    for algo in ("sac", "td3", "ppo"):
         cpu = subprocess.run(base + ["--algo", algo, "--device", "cpu"],
                              env=env, capture_output=True, text=True,
                              timeout=120)
         assert cpu.returncode == 0, cpu.stderr
         assert "AP50=" in cpu.stdout and "over 16 steps" in cpu.stdout
-    for extra in (["--algo", "ppo"], ["--scenario", "price_war"],
-                  ["--arch", "zamba2-2.7b"]):
+    ppo = subprocess.run(base + ["--algo", "ppo"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert ppo.returncode != 0 and "no CUDA device" in ppo.stderr
+    for extra in (["--scenario", "price_war"], ["--arch", "zamba2-2.7b"]):
         out = subprocess.run(base + extra + ["--device", "cpu"], env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0 and "not ported yet" in out.stderr

@@ -38,6 +38,7 @@ from repro_torch.core import networks as tnets  # noqa: E402
 from repro_torch.core.action_space import k_nearest as t_knn  # noqa: E402
 from repro_torch.core.action_space import (  # noqa: E402
     wolpertinger_select as t_wolp)
+from repro_torch.core.device_replay import DeviceReplayBuffer  # noqa: E402
 from repro_torch.core.replay_buffer import ReplayBuffer as TBuf  # noqa: E402
 from repro_torch.core.sac import (SAC as TSAC,  # noqa: E402
                                   SACConfig as TSACConfig, q_loss,
@@ -609,11 +610,11 @@ def test_driver_rejects_what_it_does_not_take(envs):
     with pytest.raises(ValueError, match="lanes"):
         tloops.run_off_policy(Scripted(), tenv, lanes=0, **OFFPOLICY_KW)
 
-    class DeviceBuf(TBuf):
-        device_resident = True
-    with pytest.raises(NotImplementedError, match="device-resident"):
-        tloops.run_off_policy(Scripted(), tenv,
-                              buffer=DeviceBuf(10, tenv.state_dim, N),
+    # a device buffer on another device than the agent's (here the env's)
+    other = DeviceReplayBuffer(10, tenv.state_dim, N, device="cpu")
+    other.device = torch.device("meta")
+    with pytest.raises(ValueError, match="replay buffer lives on meta"):
+        tloops.run_off_policy(Scripted(), tenv, buffer=other,
                               **OFFPOLICY_KW)
 
     class DroppingBuf(TBuf):
