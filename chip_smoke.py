@@ -61,7 +61,32 @@ Phases, each fatal on failure (no result line is printed then):
                give those launches, env steps/s, ms per gradient step
                eager and in a block, the wall time split into collect,
                update and evaluate, and the device's idle share over one
-               update block (``torch.profiler``).
+               update block (``torch.profiler``);
+  7. async   — the phase-3 tab2 traces and 4096 requests through
+               ``AsyncFederationService`` at the reference CLI's defaults
+               (4 shards, flushes of up to 16, 2 ms), submitted at once by
+               8 client threads (a burst), on the thread plane (the IoU
+               kernel launched from 4 threads of this process), the
+               process plane (4 spawned workers, each with its own CUDA
+               context) and the socket plane (4 spawned shard hosts); each
+               plane's results bit-equal to ``handle_many`` on a CPU core,
+               and every worker and host showing IoU launches (their
+               counts come back by introspection); one socket host
+               SIGKILLed mid-stream behind the HTTP front door (no request
+               lost or doubled, /healthz ``degraded``, 64 requests over
+               HTTP equal to in-process); the thread plane under Poisson
+               arrivals at half its burst rate, fixed and adaptive
+               deadline, where flushes must fire on the deadline; 1024
+               tab3 requests through the process plane; then, with no
+               plane measured beside them, ``max_batch=1`` equal to
+               ``handle`` and two external ``launch/shard_host.py`` hosts
+               joined by ``launch.serve --async --transport socket
+               --hosts``, which must exit 0.  The ``[async:*]`` lines give
+               req/s, mean flush size, flushes by reason, submit-to-result
+               p50/p99 (host clock: the drain under a burst, the latency
+               under Poisson arrivals), start-up seconds, the card's used
+               memory with the plane up and the IoU launches per
+               process.
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -419,7 +444,8 @@ def serve_pass(label: str, dev) -> dict:
         f"against the CPU in {phases['checks_s']:.2f}s")
     return {"launches": launches, "rps": rps, "phases": phases,
             "flush_boxes": flush_boxes, "svc": svc, "traces": traces,
-            "first_reqs": [int(i) for i in reqs[:flush]]}
+            "first_reqs": [int(i) for i in reqs[:flush]],
+            "reqs": [int(i) for i in reqs]}
 
 
 def _device_us(events) -> float:
@@ -1732,6 +1758,488 @@ def train_phase(served_env, dev) -> dict:
             "launches_ppo": ppo["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the async serving plane on the card
+# ---------------------------------------------------------------------------
+
+# The reference CLI's defaults (``launch/serve.py --async``), and the open
+# loop: CLIENTS threads, each submitting its share without waiting.
+ASYNC = dict(workers=4, max_batch=16, max_wait_ms=2.0)
+CLIENTS = 8
+AMBIGUOUS = 1e-5      # a proto this close to tau's 0.5 may round either
+                      # way between a 16-row and a 1024-row actor forward
+
+
+def card_used_mib(dev) -> float:
+    """The card's used memory (every process's contexts and tensors)."""
+    import torch
+    free, total = torch.cuda.mem_get_info(dev)
+    return (total - free) / 2 ** 20
+
+
+def drive_open_loop(svc, reqs, *, on_progress=None) -> dict:
+    """CLIENTS threads submit ``reqs`` (interleaved shares) open loop; the
+    results in request order, each request's submit-to-result seconds,
+    and the run's wall seconds.  ``on_progress(n_done)`` is called by a
+    watcher thread once results come back (the host-kill hook)."""
+    import threading
+    import numpy as np
+    n = len(reqs)
+    results = [None] * n
+    lat = np.zeros(n)
+    done = [0]
+    lock = threading.Lock()
+
+    def client(k):
+        futs = []
+        for i in range(k, n, CLIENTS):
+            t = time.perf_counter()
+            f = svc.submit(reqs[i])
+
+            def finished(f, i=i, t=t):
+                lat[i] = time.perf_counter() - t
+                with lock:
+                    done[0] += 1
+            f.add_done_callback(finished)
+            futs.append((i, f))
+        for i, f in futs:
+            results[i] = f.result(timeout=600)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(CLIENTS)]
+    watcher = None
+    if on_progress is not None:
+        watcher = threading.Thread(target=on_progress, args=(done,))
+        watcher.start()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if watcher is not None:
+        watcher.join()
+    return {"results": results, "lat": lat, "wall": wall}
+
+
+def drive_paced(svc, reqs, rate: float, seed: int) -> dict:
+    """Poisson arrivals at ``rate`` requests/s: one seeded schedule, its
+    requests dealt in turn to CLIENTS threads, each sleeping until its
+    next arrival.  The results in request order, each request's
+    submit-to-result seconds, how late each submit came against its
+    schedule, and the run's wall seconds."""
+    import threading
+    import numpy as np
+    n = len(reqs)
+    arrive = np.cumsum(np.random.default_rng(seed).exponential(1.0 / rate,
+                                                                n))
+    results = [None] * n
+    lat = np.zeros(n)
+    late = np.zeros(n)
+    t0 = time.perf_counter() + 0.05        # every client up before t0
+
+    def client(k):
+        futs = []
+        for i in range(k, n, CLIENTS):
+            wait = t0 + arrive[i] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            t = time.perf_counter()
+            late[i] = t - t0 - arrive[i]
+            f = svc.submit(reqs[i])
+
+            def finished(f, i=i, t=t):
+                lat[i] = time.perf_counter() - t
+            f.add_done_callback(finished)
+            futs.append((i, f))
+        for i, f in futs:
+            results[i] = f.result(timeout=600)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"results": results, "lat": lat, "late": late,
+            "wall": time.perf_counter() - t0}
+
+
+def paced_run(label, env, agent, reqs, want, ref_svc, protos, rate, *,
+              adaptive: bool) -> dict:
+    """The thread plane under Poisson arrivals at ``rate``: flushes fire
+    on the deadline (``max_wait_ms``, shortened with the queue's depth
+    when ``adaptive``) before they fill, so partial flushes, padded to
+    ``max_batch`` for the actor, run on the card.  Held to the sync
+    CPU-core results as the bursts are; its submit-to-result
+    percentiles are the plane's latency at that load."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.serving.async_service import AsyncFederationService
+    with AsyncFederationService(env, agent, transport="thread",
+                                adaptive=adaptive, **ASYNC) as svc:
+        ops.reset_launches()
+        run = drive_paced(svc, reqs, rate, seed=7)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES
+        st = svc.stats
+        mean_flush = svc.mean_flush_size()
+    out = {"plane": "thread", "adaptive": adaptive, "requests": len(reqs),
+           "offered_req_per_s": rate, "req_per_s": len(reqs) / run["wall"],
+           "wall_s": run["wall"], "mean_flush": mean_flush,
+           "flushes": st["flushes"],
+           "by_reason": {k: st[k] for k in ("flush_full", "flush_timeout",
+                                             "flush_drain")},
+           "p50_ms": float(np.percentile(run["lat"], 50) * 1e3),
+           "p99_ms": float(np.percentile(run["lat"], 99) * 1e3),
+           "submit_late_p99_ms": float(np.percentile(run["late"], 99) * 1e3),
+           "launches": launches}
+    out["flips"] = check_against_sync(label, run["results"], want, reqs,
+                                      ref_svc, protos)
+    if st["flush_timeout"] <= 0 or mean_flush >= ASYNC["max_batch"]:
+        raise AssertionError(f"{label}: the deadline path never fired: "
+                             f"{st}")
+    if launches <= 0:
+        raise AssertionError(f"{label}: the IoU kernel never launched")
+    log(f"[async:{label}] {json.dumps(out)}")
+    return out
+
+
+def check_against_sync(label, got, want, reqs, ref_svc, protos) -> int:
+    """Every result bit-equal to the sync CPU-core service's: actions,
+    detections, fees, latencies.  An action may differ only where a proto
+    lies within AMBIGUOUS of 0.5 (the actor ran on another batch shape);
+    such a result is held to the CPU core's answer for its own action.
+    Returns the number of such results."""
+    import numpy as np
+    flips = 0
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} results for "
+                             f"{len(want)} requests")
+    for k, (img, g, w) in enumerate(zip(reqs, got, want)):
+        if g is None:
+            raise AssertionError(f"{label}: request {k} lost")
+        if not np.array_equal(g.action, w.action):
+            if not np.any(np.abs(protos[k] - 0.5) < AMBIGUOUS):
+                raise AssertionError(f"{label}: action of request {k} "
+                                     f"(image {img}) differs")
+            flips += 1
+            w = ref_svc._account(int(img), g.action)
+        same = (g.cost_milli_usd == w.cost_milli_usd
+                and g.latency_ms == w.latency_ms
+                and all(np.array_equal(getattr(g.detections, f),
+                                       getattr(w.detections, f))
+                        for f in ("boxes", "scores", "labels",
+                                  "providers")))
+        if not same:
+            raise AssertionError(f"{label}: request {k} (image {img}) "
+                                 f"differs from the sync CPU-core result")
+    return flips
+
+
+def sync_reference(env, agent, traces, reqs):
+    """``FederationService.handle_many`` in flushes of FLUSH on a CPU
+    core, the same agent: the results every plane is held to, the
+    service, and the deterministic protos of the requests."""
+    import copy
+    from repro_torch.federation.evaluation import SubsetEvaluationCore
+    from repro_torch.serving.federation_service import FederationService
+    ref_env = copy.copy(env)
+    ref_env.core = SubsetEvaluationCore(traces, device="cpu")
+    ref = FederationService(ref_env, agent)
+    want = []
+    for lo in range(0, len(reqs), FLUSH):
+        want += ref.handle_many(reqs[lo:lo + FLUSH])
+    protos = agent.protos(env.features[reqs], deterministic=True
+                          ).cpu().numpy()
+    return want, ref, protos
+
+
+def shard_launches(svc) -> list:
+    """IoU launches per worker or host (introspection), in shard order."""
+    return svc.core.iou_launches()
+
+
+def plane_run(label, env, agent, reqs, want, ref_svc, protos, dev, *,
+              transport, kill_host=False, door=False) -> dict:
+    """One plane up, driven by CLIENTS threads that submit all of
+    ``reqs`` at once (a burst: every request is queued together, so the
+    submit-to-result percentiles read the drain, not a latency), held to
+    the sync CPU-core results; its numbers and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.serving.async_service import AsyncFederationService
+    before_mib = card_used_mib(dev)
+    t0 = time.perf_counter()
+    svc = AsyncFederationService(env, agent, transport=transport, **ASYNC)
+    out = {"plane": transport, "requests": len(reqs)}
+    try:
+        torch.cuda.synchronize()
+        out["start_s"] = time.perf_counter() - t0
+        out["card_used_mib"] = card_used_mib(dev)
+        out["plane_mib"] = out["card_used_mib"] - before_mib
+        before = [] if svc.transport.inline else shard_launches(svc)
+        ops.reset_launches()
+        svc.reset_stats()
+        run = drive_open_loop(svc, reqs)
+        torch.cuda.synchronize()
+        parent = ops.LAUNCHES
+        after = [] if svc.transport.inline else shard_launches(svc)
+        st = svc.stats
+        out.update({
+            "req_per_s": len(reqs) / run["wall"], "wall_s": run["wall"],
+            "mean_flush": svc.mean_flush_size(),
+            "flushes": st["flushes"],
+            "by_reason": {k: st[k] for k in ("flush_full", "flush_timeout",
+                                              "flush_drain")},
+            "drain_p50_ms": float(np.percentile(run["lat"], 50) * 1e3),
+            "drain_p99_ms": float(np.percentile(run["lat"], 99) * 1e3),
+            "card_used_mib_after": card_used_mib(dev),
+            "iou_launches_parent": parent,
+            "iou_launches_per_process": [a - b for a, b in
+                                         zip(after, before)]})
+        out["flips"] = check_against_sync(label, run["results"], want,
+                                          reqs, ref_svc, protos)
+        procs = out["iou_launches_per_process"]
+        if svc.transport.inline:
+            if parent <= 0:
+                raise AssertionError(f"{label}: the thread plane never "
+                                     f"launched the IoU kernel")
+        elif len(procs) != svc.workers or min(procs) <= 0:
+            raise AssertionError(f"{label}: a worker or host launched the "
+                                 f"IoU kernel no time: {procs}")
+        out["launches"] = parent + sum(procs)
+        if kill_host:
+            out["kill"] = kill_mid_stream(label, svc, reqs[:2048], want,
+                                          ref_svc, protos, door)
+            out["launches"] += out["kill"]["launches"]
+    finally:
+        svc.close()
+    log(f"[async:{label}] {json.dumps(out)}")
+    return out
+
+
+def kill_mid_stream(label, svc, reqs, want, ref_svc, protos, door) -> dict:
+    """A second pass with the HTTP door up: one host SIGKILLed once 256
+    results are back; every request answered once, bit-equal, the door's
+    /healthz ``ok`` before and ``degraded`` after, and 64 requests
+    through the door equal to the in-process results."""
+    import os
+    import signal
+    from repro_torch.serving import (FederationClient, HttpFrontDoor,
+                                     HttpServingClient)
+    base = shard_launches(svc)
+    requests0 = svc.stats["requests"]
+    victim = svc.core.shard_id(reqs[300])
+    pid = svc.core.host_pids()[victim]
+    with HttpFrontDoor(svc) as front:
+        cli = HttpServingClient(front.url)
+        before = cli.healthz()
+
+        def killer(done):
+            while done[0] < 256:
+                time.sleep(0.001)
+            os.kill(pid, signal.SIGKILL)
+
+        run = drive_open_loop(svc, reqs, on_progress=killer)
+        after = cli.healthz()
+        via_http = cli.handle_many(reqs[:64])
+        local = FederationClient(svc).handle_many(reqs[:64])
+        cli.close()
+    flips = check_against_sync(f"{label} kill", run["results"],
+                               want[:len(reqs)], reqs, ref_svc, protos)
+    check_against_sync(f"{label} http", via_http, local, reqs[:64], ref_svc,
+                       protos)
+    answered = svc.stats["requests"] - requests0
+    if svc.transport.condemned != [victim]:
+        raise AssertionError(f"{label}: condemned {svc.transport.condemned}"
+                             f", killed host {victim}")
+    if answered != len(reqs) + 128:
+        raise AssertionError(f"{label}: {answered} requests answered for "
+                             f"{len(reqs)} + 128 sent (lost or doubled)")
+    if before["status"] != "ok" or after["status"] != "degraded" or \
+            after["condemned"] != [victim]:
+        raise AssertionError(f"{label}: /healthz {before} then {after}")
+    survivors = [h for h in range(svc.workers) if h != victim]
+    now = shard_launches(svc)               # the survivors only
+    grew = [b - base[h] for h, b in zip(survivors, now)]
+    return {"victim": victim, "requests": len(reqs), "flips": flips,
+            "healthz_after": after["status"], "http_requests": 64,
+            "wall_s": run["wall"], "requeued":
+            svc.metrics_snapshot()["counters"].get("serving.rows_requeued"),
+            "launches": sum(grew), "iou_launches_survivors": grew}
+
+
+def host_launches(addr) -> int:
+    """One external host's IoU launch count, by the introspect op."""
+    import socket
+    from repro_torch.serving.socket_shards import recv_msg, send_msg
+    host, port = addr.rsplit(":", 1)
+    with socket.create_connection((host, int(port)), timeout=30) as s:
+        send_msg(s, (1, "introspect", None))
+        rid, status, rep = recv_msg(s)
+    if status != "ok":
+        raise AssertionError(f"host {addr} introspect: {rep}")
+    return int(rep["iou_launches"])
+
+
+def start_external_hosts(n: int, images: int):
+    """``launch/shard_host.py`` processes on the card (no ``--device``),
+    started once the measured planes are done."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.shard_host", "--images",
+         str(images), "--seed", "0"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for _ in range(n)]
+
+
+def start_serve_cli(hosts, images: int):
+    """Once the hosts report their ports: ``launch.serve --federation
+    --async --transport socket --hosts`` in the background (its 5000-image
+    env takes most of a minute to build), with each host's launch count
+    before it."""
+    import os
+    t0 = time.perf_counter()
+    addrs = []
+    for h in hosts:
+        line = h.stdout.readline()
+        if "[shard_host] serving" not in line:
+            raise AssertionError(f"shard host did not start: {line!r} "
+                                 f"{h.stderr.read()}")
+        addrs.append(line.split(" on ")[1].split()[0])
+    up_s = time.perf_counter() - t0
+    base = [host_launches(a) for a in addrs]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--federation",
+           "--async", "--transport", "socket", "--hosts", ",".join(addrs),
+           "--images", str(images), "--requests", "1024"]
+    cli = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    return {"cli": cli, "addrs": addrs, "base": base,
+            "wait_for_hosts_s": up_s, "t0": time.perf_counter()}
+
+
+def finish_serve_cli(run: dict) -> dict:
+    """The CLI must exit 0 having served its 1024 requests, and each
+    external host must show IoU launches."""
+    stdout, stderr = run["cli"].communicate(timeout=600)
+    cli_s = time.perf_counter() - run["t0"]
+    if run["cli"].returncode != 0 or "1024 requests" not in stdout:
+        raise AssertionError(f"launch.serve --hosts exited "
+                             f"{run['cli'].returncode}: {stdout}{stderr}")
+    grew = [host_launches(a) - b for a, b in zip(run["addrs"], run["base"])]
+    if min(grew) <= 0:
+        raise AssertionError(f"an external host launched the IoU kernel "
+                             f"no time: {grew}")
+    res = {"hosts": run["addrs"], "wait_for_hosts_s": run["wait_for_hosts_s"],
+           "cli_s": cli_s, "iou_launches_per_host": grew,
+           "launches": sum(grew),
+           "cli": [ln for ln in stdout.splitlines()
+                   if ln.startswith("[serve]")]}
+    log(f"[async:external] {json.dumps(res)}")
+    return res
+
+
+def stop_processes(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+        p.stdout.close()
+        p.stderr.close()
+
+
+def async_phase(main3: dict, tab3: dict, dev) -> dict:
+    """Phase 7: the tab2 traces and requests of phase 3 served through the
+    async micro-batcher on the thread, process and socket planes (8
+    client threads, 4 shards, flushes of up to 16 padded to 16), each
+    held to the sync service on a CPU core: a burst on each plane, a
+    socket host killed mid-stream behind the HTTP door, Poisson arrivals
+    at half the thread plane's burst rate (fixed and adaptive deadline),
+    and one tab3 burst through the process plane.  Only then, so that
+    nothing of theirs runs beside a measured plane: two external
+    ``launch/shard_host.py`` hosts joined by the serve CLI, with
+    ``max_batch=1`` against ``handle`` while the hosts build their
+    traces."""
+    import torch
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.serving.async_service import AsyncFederationService
+    t_phase = time.perf_counter()
+    procs = []
+    try:
+        env, agent = main3["svc"].env, main3["svc"].agent
+        reqs = main3["reqs"]
+        t0 = time.perf_counter()
+        want, ref_svc, protos = sync_reference(env, agent, main3["traces"],
+                                               reqs)
+        log(f"[async] sync CPU-core reference of {len(reqs)} tab2 requests "
+            f"in {time.perf_counter() - t0:.2f}s; card used "
+            f"{card_used_mib(dev):.0f} MiB before the planes")
+        planes = {}
+        for name in ("thread", "process", "socket"):
+            torch.cuda.empty_cache()
+            planes[name] = plane_run(
+                f"tab2 {name}", env, agent, reqs, want, ref_svc, protos,
+                dev, transport=name, kill_host=name == "socket")
+        rate = planes["thread"]["req_per_s"] / 2
+        paced = {("adaptive" if a else "fixed"): paced_run(
+            f"tab2 thread paced{' adaptive' if a else ''}", env, agent,
+            reqs, want, ref_svc, protos, rate, adaptive=a)
+            for a in (False, True)}
+
+        env3, agent3 = tab3["svc"].env, tab3["svc"].agent
+        reqs3 = tab3["reqs"][:FLUSH]
+        want3, ref3, protos3 = sync_reference(env3, agent3, tab3["traces"],
+                                              reqs3)
+        t3 = plane_run("tab3 process", env3, agent3, reqs3, want3, ref3,
+                       protos3, dev, transport="process")
+
+        hosts = start_external_hosts(2, SERVE_PASSES["tab2"][1])
+        procs += hosts
+        singles = reqs[:64]
+        ops.reset_launches()
+        with AsyncFederationService(env, agent, max_batch=1,
+                                    workers=1) as svc:
+            got = [svc.handle(i) for i in singles]
+        one = {"requests": len(singles), "launches": ops.LAUNCHES,
+               "flips": check_against_sync(
+                   "max_batch=1", got, [ref_svc.handle(i) for i in singles],
+                   singles, ref_svc, protos[:64])}
+        if one["flips"]:
+            raise AssertionError("max_batch=1 must equal handle exactly")
+        log(f"[async:max_batch=1] {json.dumps(one)}")
+        cli = start_serve_cli(hosts, SERVE_PASSES["tab2"][1])
+        procs.append(cli["cli"])
+        external = finish_serve_cli(cli)
+    finally:
+        stop_processes(procs)
+
+    launches = (sum(p["launches"] for p in planes.values())
+                + sum(p["launches"] for p in paced.values())
+                + one["launches"] + external["launches"])
+    wall = time.perf_counter() - t_phase
+    log(f"[async] phase 7 in {wall:.1f}s; IoU launches {launches} (tab2) "
+        f"and {t3['launches']} (tab3); ambiguous action flips "
+        f"{[p['flips'] for p in (*planes.values(), *paced.values(), t3)]}")
+    return {"planes": planes, "paced": paced, "max_batch_1": one,
+            "external": external, "tab3": t3, "launches": launches,
+            "launches_tab3": t3["launches"], "wall_s": wall,
+            "launches_by_plane": {
+                **{k: v["launches"] for k, v in planes.items()},
+                **{f"thread_paced_{k}": v["launches"]
+                   for k, v in paced.items()},
+                "max_batch_1": one["launches"],
+                "external_hosts": external["launches"]}}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -1824,6 +2332,10 @@ def main() -> int:
     train = train_phase(main3["svc"].env, dev)
     obs_flush(main3)
 
+    # 7. the async serving plane: thread, process and socket shards
+    torch.cuda.empty_cache()
+    aserve = async_phase(main3, tab3, dev)
+
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
             or m.startswith("repro.")]
@@ -1836,11 +2348,15 @@ def main() -> int:
         "source": "src/repro_torch/kernels/iou_matrix/csrc/iou_matrix.cu",
         "replaces": "src/repro/kernels/iou_matrix/kernel.py:19",
         "launches": main3["launches"] + tab3["launches"] + train["launches"]
-        + train["launches_ppo"],
+        + train["launches_ppo"] + aserve["launches"]
+        + aserve["launches_tab3"],
         "launches_tab2": main3["launches"],
         "launches_tab3": tab3["launches"],
         "launches_train": train["launches"],
         "launches_train_ppo": train["launches_ppo"],
+        "launches_async": aserve["launches"],
+        "launches_async_tab3": aserve["launches_tab3"],
+        "launches_async_by_plane": aserve["launches_by_plane"],
         "mismatches": iou["mismatches"],
         "max_abs_err": iou["max_abs_err"],
         "ms": timing["tab2"]["ms"], "plain_ms": timing["tab2"]["plain_ms"],

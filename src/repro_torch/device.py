@@ -27,12 +27,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def canonical_device(device: DeviceLike) -> torch.device:
+    """The device with its index spelled out: ``cuda`` is the current
+    CUDA device (``cuda:0`` unless another was selected)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def device_name(device: DeviceLike) -> str:
+    """``canonical_device`` as a string (``"cuda:0"``, ``"cpu"``): the
+    form a device takes in a shard's configuration, which crosses
+    process and host boundaries and is compared there."""
+    return str(canonical_device(device))
+
+
 def same_device(a: DeviceLike, b: DeviceLike) -> bool:
     """Whether two devices name the same one (``cuda`` is the current
     CUDA device, so it equals ``cuda:0`` there)."""
-    def canon(dev) -> torch.device:
-        dev = torch.device(dev)
-        if dev.type == "cuda" and dev.index is None:
-            return torch.device("cuda", torch.cuda.current_device())
-        return dev
-    return canon(a) == canon(b)
+    return canonical_device(a) == canonical_device(b)

@@ -15,11 +15,15 @@ A CPU tensor goes through the plain version
 The wrappers check dtype, shape, contiguity and device first.
 
 ``LAUNCHES`` counts kernel launches (one per wrapper call that reached
-the kernel), so a run can show that its main path went through it.
+the kernel), so a run can show that its main path went through it.  The
+serving plane launches from several threads of one process at once, so
+the count and the first load of the library are guarded by a lock: the
+count is exact, and the library is built and loaded once.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -45,17 +49,24 @@ MAX_PER_THREAD = 16
 LAUNCHES = 0
 _LIB = None
 _SMS: dict = {}
+_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
     global LAUNCHES
-    LAUNCHES = 0
+    with _LOCK:
+        LAUNCHES = 0
 
 
 def _library() -> ctypes.CDLL:
-    """The built kernel library (built at first use)."""
+    """The built kernel library (built and loaded at first use, once,
+    whichever thread gets there first)."""
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
         lib = build.load(SOURCE)
         lib.iou_matrix_ragged_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -176,7 +187,8 @@ def _launch(device: torch.device, a: int, b: int, a_off: int, b_off: int,
         raise RuntimeError(
             f"iou_matrix kernel launch failed: CUDA error {err} "
             f"({msg.decode() if msg else 'unknown'})")
-    LAUNCHES += 1
+    with _LOCK:
+        LAUNCHES += 1
     return out
 
 

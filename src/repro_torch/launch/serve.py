@@ -4,6 +4,15 @@
 selector (a SAC actor at full width) + provider fan-out + ensemble, in
 flushes of ``--flush`` requests through ``FederationService.handle_many``
 (one actor forward and one batched IoU kernel launch per flush).
+``--async`` serves them through the micro-batching
+``AsyncFederationService`` instead (``--workers`` cache shards, a flush
+at ``--max-batch`` requests or ``--max-wait-ms``, whichever comes first;
+``--adaptive`` shortens the wait as the queue deepens), on the plane
+``--transport {thread,process,socket}`` names.  ``--transport socket
+--hosts addr:port,...``
+joins shard hosts started with ``python -m
+repro_torch.launch.shard_host``; without ``--hosts`` it spawns
+``--workers`` local hosts.
 
 ``--arch <id>`` serves an LM through ``ServeEngine`` (prefill through the
 flash-attention and SSD kernels, then greedy or temperature decode),
@@ -13,12 +22,16 @@ so that length must be at most the SSM chunk or a multiple of it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --federation \\
         --images 5000 --requests 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --federation \\
+        --async --transport process --images 5000 --requests 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --full --requests 8 --prompt-len 1024 --new-tokens 16 --max-len 1040
 
 ``--obs-dir DIR`` (federation) writes the serving log, one record per
 request, and the metrics there (``python -m repro_torch.launch.obs_report
 DIR`` renders them); results are bit-identical with or without it.
+``--trace-sample P`` traces that fraction of requests through the async
+plane (spans in ``trace.jsonl``).
 ``--device cpu`` runs the plain PyTorch/numpy versions instead of the
 kernels; without it the run needs a GPU.
 """
@@ -35,8 +48,16 @@ def run_federation(args) -> int:
     from repro_torch.federation.env import ArmolEnv
     from repro_torch.federation.providers import default_providers
     from repro_torch.federation.traces import generate_traces
+    from repro_torch.serving.async_service import AsyncFederationService
     from repro_torch.serving.federation_service import FederationService
 
+    transport = args.transport
+    topts = None
+    if args.hosts:
+        if transport != "socket":
+            raise SystemExit("--hosts requires --transport socket")
+        topts = {"hosts": [hp.strip() for hp in args.hosts.split(",")
+                           if hp.strip()]}
     t0 = time.perf_counter()
     traces = generate_traces(default_providers(), args.images,
                              seed=args.seed)
@@ -48,33 +69,63 @@ def run_federation(args) -> int:
     obs = None
     if args.obs_dir:
         from repro_torch.obs import Obs
-        obs = Obs(args.obs_dir, seed=args.seed)
-        obs.open_serving_log([p.name for p in env.traces.providers],
-                             env.traces.gts)
-    svc = FederationService(env, agent, obs=obs)
+        obs = Obs(args.obs_dir, trace_sample=args.trace_sample,
+                  seed=args.seed)
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     reqs = [int(i) for i in rng.integers(0, args.images, args.requests)]
-    print(f"[serve] federation (sync, device={env.device}): "
+    mode = (f"async/{transport}, workers={args.workers}, "
+            f"max_batch={args.max_batch}" if args.use_async
+            else f"sync, flush={args.flush}")
+    print(f"[serve] federation ({mode}, device={env.device}): "
           f"{env.n_providers} providers, {args.images} images, "
-          f"{args.requests} requests, flush={args.flush} "
-          f"(setup {setup_s:.2f}s)")
+          f"{args.requests} requests (setup {setup_s:.2f}s)")
 
-    t0 = time.perf_counter()
-    results = []
-    for lo in range(0, len(reqs), args.flush):
-        results += svc.handle_many(reqs[lo:lo + args.flush])
-    dt = time.perf_counter() - t0
+    extra = ""
+    if args.use_async:
+        t0 = time.perf_counter()
+        with AsyncFederationService(
+                env, agent, max_batch=args.max_batch,
+                max_wait_ms=args.max_wait_ms, adaptive=args.adaptive,
+                workers=args.workers, transport=transport,
+                transport_options=topts, obs=obs) as svc:
+            start_s = time.perf_counter() - t0
+            svc.handle_many(reqs[:args.max_batch])      # warm the shards
+            svc.reset_stats()
+            if obs is not None:
+                # opened after warm-up: the log covers measured traffic
+                obs.open_serving_log([p.name for p in traces.providers],
+                                     traces.gts)
+            t0 = time.perf_counter()
+            futures = [svc.submit(i) for i in reqs]
+            results = [f.result() for f in futures]
+            dt = time.perf_counter() - t0
+            extra = (f" mean_flush={svc.mean_flush_size():.1f}"
+                     f" flushes={svc.stats['flushes']}"
+                     f" shards={svc.workers} (start {start_s:.2f}s)")
+            if obs is not None:
+                obs.write_metrics(svc.extra_metric_snapshots())
+    else:
+        svc = FederationService(env, agent, obs=obs)
+        if obs is not None:
+            obs.open_serving_log([p.name for p in traces.providers],
+                                 traces.gts)
+        t0 = time.perf_counter()
+        results = []
+        for lo in range(0, len(reqs), args.flush):
+            results += svc.handle_many(reqs[lo:lo + args.flush])
+        dt = time.perf_counter() - t0
+        if obs is not None:
+            obs.write_metrics()
 
     cost = sum(r.cost_milli_usd for r in results)
     lat = np.asarray([r.latency_ms for r in results])
     print(f"[serve] {len(results)} requests in {dt:.2f}s "
-          f"({len(results) / max(dt, 1e-9):.0f} req/s)")
+          f"({len(results) / max(dt, 1e-9):.0f} req/s){extra}")
     print(f"[serve] accounted cost={cost:.1f} mUSD, modeled latency "
           f"p50={np.percentile(lat, 50):.0f}ms "
           f"p99={np.percentile(lat, 99):.0f}ms")
     if obs is not None:
-        obs.write_metrics()
         obs.close()
         print(f"[serve] observability artifacts in {args.obs_dir} "
               f"(render: python -m repro_torch.launch.obs_report "
@@ -142,6 +193,31 @@ def main():
                     help="request count (default: 8 LM, 400 federation)")
     ap.add_argument("--flush", type=int, default=1024,
                     help="federation: requests per handle_many call")
+    ap.add_argument("--async", dest="use_async", action="store_true",
+                    help="federation: micro-batching "
+                         "AsyncFederationService")
+    ap.add_argument("--workers", type=int, default=4,
+                    help="async: cache shards (threads, worker processes "
+                         "or locally spawned hosts, per --transport)")
+    ap.add_argument("--max-batch", type=int, default=16,
+                    help="async: flush when this many requests queue")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="async: flush when the oldest request is this old")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="async: deadline-aware flush sizing from queue "
+                         "depth (deeper queue -> flush sooner)")
+    ap.add_argument("--transport", default="thread",
+                    choices=("thread", "process", "socket"),
+                    help="async: the evaluation plane — in-process "
+                         "threads, one worker process per shard, or shard "
+                         "HOSTS over TCP (spawns --workers local hosts "
+                         "unless --hosts names external ones).  Results "
+                         "are bit-identical across all three")
+    ap.add_argument("--hosts", default="",
+                    help="async --transport socket: comma-separated "
+                         "addr:port of shard hosts started with python -m "
+                         "repro_torch.launch.shard_host (same --images, "
+                         "--seed and device)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions)")
@@ -151,6 +227,9 @@ def main():
                          "(metrics.json, serving_log.jsonl) to this "
                          "directory; results are bit-identical with or "
                          "without it")
+    ap.add_argument("--trace-sample", type=float, default=0.0,
+                    help="async: fraction of requests traced through the "
+                         "plane (0 = tracing off; needs --obs-dir)")
     args = ap.parse_args()
     if args.requests is None:
         args.requests = 400 if args.federation else 8

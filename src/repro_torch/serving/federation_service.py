@@ -13,6 +13,10 @@ subset-evaluation core.  Cost/latency accounting is vectorized over the
 whole flush; the empty selection returns an explicit zero-cost /
 zero-latency result.
 
+``repro_torch.serving.async_service.AsyncFederationService`` layers a
+micro-batching queue and sharded caches over this service for
+concurrent clients.
+
 An ``obs`` handle (``repro_torch.obs.Obs``) with an open serving log gets
 one record per request (backend ``"sync"``, AP50 read off the subset
 core); results are bit-identical with or without it.
@@ -20,7 +24,7 @@ core); results are bit-identical with or without it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -55,7 +59,12 @@ class FederationService:
         """One numpy pass over a flush: every request's binary action,
         selection count, subset mask, summed fee, and modeled latency
         (transmission is sequential over selected providers; inference is
-        parallel -> max latency, paper Sec. II-B)."""
+        parallel -> max latency, paper Sec. II-B).
+
+        This is the shard-merge contract of every evaluation plane:
+        routing and accounting happen here, in the parent, and only the
+        ensemble lookups go to a shard (a thread's dict, a worker
+        process's pipe or a shard host's socket)."""
         acts = np.asarray(actions, np.float32).reshape(
             len(imgs), self.env.n_providers)
         sel = acts > 0.5
@@ -68,45 +77,73 @@ class FederationService:
                            self.transmission_ms * n_sel + inf_lat, 0.0)
         return acts, n_sel, masks, cost, latency
 
-    def _log_serving(self, imgs: Sequence[int], masks: Sequence[int],
-                     results: List[FederationResult]) -> None:
-        """Append one serving-log record per request of a flush, AP50 read
-        off the subset core's memo (when the log scores against ground
-        truth)."""
-        log = self.obs.serving_log
-        if log is None:
-            return
-        aps = None
-        if log.gts is not None:
-            aps = [self.env.core.ap50(int(i), int(m)) if m else 0.0
-                   for i, m in zip(imgs, masks)]
-        log.log_flush(imgs, masks, self.env.costs, results, backend="sync",
-                      aps=aps)
-
-    def _account_batch(self, imgs: Sequence[int], actions: np.ndarray
-                       ) -> List[FederationResult]:
-        """Vectorized ensemble + cost/latency bookkeeping for one flush;
-        only the memoized ensemble lookups remain per request.  The empty
-        selection keeps its explicit zero-cost / zero-latency route."""
-        core = self.env.core
-        acts, n_sel, masks, cost, latency = self._route_batch(imgs, actions)
+    def _results_from_ensembles(self, acts: np.ndarray, n_sel: np.ndarray,
+                                cost: np.ndarray, latency: np.ndarray,
+                                ensembles: Sequence[Detections]
+                                ) -> List[FederationResult]:
+        """FederationResults from routed accounting and per-request
+        ensembles (memo lookups or a shard's rows: the same merge either
+        way).  The empty selection keeps its explicit zero-cost /
+        zero-latency route."""
         out = []
-        for t, img in enumerate(imgs):
+        for t, ens in enumerate(ensembles):
             if n_sel[t] == 0:
                 out.append(FederationResult(Detections.empty(), acts[t],
                                             0.0, 0.0))
                 continue
-            out.append(FederationResult(
-                core.ensemble(int(img), int(masks[t])), acts[t],
-                float(cost[t]), float(latency[t])))
-        if self.obs is not None:
-            self._log_serving(imgs, masks, out)
+            out.append(FederationResult(ens, acts[t], float(cost[t]),
+                                        float(latency[t])))
         return out
+
+    def _log_serving(self, imgs: Sequence[int], masks: Sequence[int],
+                     results: List[FederationResult],
+                     log_ctx: Optional[dict] = None, core=None) -> None:
+        """Append one serving-log record per request of a flush, with the
+        flush's ``reason`` and ``backend`` from ``log_ctx``.  With an
+        in-process ``core`` AP50 is read off its memo; the process and
+        socket planes pass none and the log scores against its own
+        ground truth."""
+        obs = self.obs
+        if obs is None or obs.serving_log is None:
+            return
+        ctx = log_ctx or {}
+        aps = None
+        if core is not None and obs.serving_log.gts is not None:
+            aps = [core.ap50(int(i), int(m)) if m else 0.0
+                   for i, m in zip(imgs, masks)]
+        obs.serving_log.log_flush(
+            imgs, masks, self.env.costs, results, reason=ctx.get("reason"),
+            backend=ctx.get("backend", "sync"), aps=aps)
+
+    def _account_batch(self, imgs: Sequence[int], actions: np.ndarray,
+                       *, core=None, log_ctx: Optional[dict] = None
+                       ) -> List[FederationResult]:
+        """Vectorized ensemble + cost/latency bookkeeping for one flush;
+        only the memoized ensemble lookups remain per request.  ``core``
+        defaults to the env's; the async service passes the request's
+        home shard."""
+        core = self.env.core if core is None else core
+        acts, n_sel, masks, cost, latency = self._route_batch(imgs,
+                                                              actions)
+        ensembles = [
+            Detections.empty() if n_sel[t] == 0
+            else core.ensemble(int(img), int(masks[t]))
+            for t, img in enumerate(imgs)]
+        results = self._results_from_ensembles(acts, n_sel, cost, latency,
+                                               ensembles)
+        if self.obs is not None:
+            self._log_serving(imgs, masks, results, log_ctx, core=core)
+        return results
+
+    def _account(self, img_idx: int,
+                 action: np.ndarray) -> FederationResult:
+        """Single-request accounting (the batch path with one row)."""
+        return self._account_batch([img_idx], np.asarray(action)[None])[0]
 
     def handle(self, img_idx: int) -> FederationResult:
         s = self.env.features[img_idx]
         a, _ = self.agent.select_action(s, deterministic=self.deterministic)
-        return self._account_batch([img_idx], np.asarray(a)[None])[0]
+        return self._account(img_idx, np.asarray(a))
 
     def handle_many(self, img_indices: Sequence[int]
                     ) -> List[FederationResult]:

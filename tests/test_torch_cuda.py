@@ -583,3 +583,71 @@ def test_ppo_training_drives_the_iou_kernel(dev):
                    log=None)
     assert ops.LAUNCHES > 0
     assert np.isfinite(hist[-1]["ap50"]) and np.isfinite(hist[-1]["cost"])
+
+
+# ---------------------------------------------------------------------------
+# the async serving plane on the card
+# ---------------------------------------------------------------------------
+
+class _FixedAgent:
+    def __init__(self, action):
+        self.action = np.asarray(action, np.float32)
+
+    def select_action(self, s, *, deterministic=False):
+        s = np.asarray(s)
+        if s.ndim == 2:
+            return np.tile(self.action, (len(s), 1)), None
+        return self.action.copy(), None
+
+
+def _serving_world(dev, n_images=80):
+    from repro_torch.federation.env import ArmolEnv
+    from repro_torch.federation.evaluation import SubsetEvaluationCore
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.federation.traces import generate_traces
+    tr = generate_traces(default_providers(), n_images, seed=5)
+    env = ArmolEnv(tr, mode="gt", beta=0.0, seed=0, device=dev)
+    return tr, env, SubsetEvaluationCore(tr, device="cpu")
+
+
+@pytest.mark.parametrize("transport", ["thread", "process", "socket"])
+def test_async_planes_launch_the_kernel_and_equal_a_cpu_core(dev,
+                                                             transport):
+    """Each plane on the card: every worker or host (or, inline, this
+    process) launches the IoU kernel, and the served ensembles equal a CPU
+    core's bit for bit."""
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.serving.async_service import AsyncFederationService
+    tr, env, cpu = _serving_world(dev)
+    imgs = [int(i) for i in np.random.default_rng(1).integers(0, 80, 96)]
+    with AsyncFederationService(env, _FixedAgent([1, 1, 0]), max_batch=8,
+                                workers=2, transport=transport) as svc:
+        if not svc.transport.inline:
+            assert svc.core.device == "cuda:0"
+            before = svc.core.iou_launches()
+        ops.reset_launches()
+        got = svc.handle_many(imgs)
+        if svc.transport.inline:
+            assert ops.LAUNCHES > 0
+        else:
+            grew = [a - b for a, b in zip(svc.core.iou_launches(), before)]
+            assert len(grew) == 2 and min(grew) > 0, grew
+    for img, r in zip(imgs, got):
+        want = cpu.ensemble(img, 3)
+        for f in ("boxes", "scores", "labels", "providers"):
+            np.testing.assert_array_equal(getattr(r.detections, f),
+                                          getattr(want, f))
+
+
+def test_socket_hello_refuses_a_host_on_another_device(dev):
+    """A CPU host is refused by a front on the card: the hello compares
+    the device string (and the kernel decision) with the front's."""
+    from repro_torch.serving.mp_shards import ShardWorkerError
+    from repro_torch.serving.socket_shards import \
+        SocketShardedSubsetEvaluationCore
+    tr, _, _ = _serving_world(dev, 12)
+    with SocketShardedSubsetEvaluationCore(tr, n_shards=1,
+                                           device="cpu") as host:
+        with pytest.raises(ShardWorkerError, match="cfg differs"):
+            SocketShardedSubsetEvaluationCore(tr, hosts=host.host_addrs(),
+                                              device=dev)

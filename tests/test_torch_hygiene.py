@@ -38,12 +38,57 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
               "repro_torch.launch.obs_report",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
-              "repro_torch.configs.zamba2_2_7b"):
+              "repro_torch.configs.zamba2_2_7b",
+              "repro_torch.serving.async_service",
+              "repro_torch.serving.transports",
+              "repro_torch.serving.mp_shards",
+              "repro_torch.serving.socket_shards",
+              "repro_torch.serving.client",
+              "repro_torch.serving.http_front",
+              "repro_torch.launch.shard_host"):
         assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.strip() == "[]"
+
+
+def test_a_shard_worker_serving_imports_no_jax_and_no_repro():
+    """What a spawned shard worker runs (``mp_shards._worker_main`` behind
+    its pipe: the handshake, an eval, introspection, stop) in a fresh
+    interpreter that imported nothing else: neither JAX nor the reference
+    is loaded."""
+    code = (
+        "import sys, threading\n"
+        "from multiprocessing import Pipe\n"
+        "from repro_torch.federation.providers import default_providers\n"
+        "from repro_torch.federation.traces import generate_traces\n"
+        "from repro_torch.serving.mp_shards import _worker_main, "
+        "pickled_traces, shard_config\n"
+        "tr = generate_traces(default_providers(), 6, seed=0)\n"
+        "cfg = shard_config(voting='affirmative', ablation='wbf', "
+        "iou_thr=0.5, use_kernel='auto', device='cpu')\n"
+        "parent, child = Pipe()\n"
+        "t = threading.Thread(target=_worker_main, args=(child, cfg))\n"
+        "t.start()\n"
+        "parent.send_bytes(pickled_traces(tr))\n"
+        "assert parent.recv() == (0, 'ok', 'ready')\n"
+        "for rid, msg in enumerate([('eval', [0, 1, 2], [7, 1, 0], None, "
+        "None), ('introspect', None), ('stop',)], 1):\n"
+        "    parent.send((rid,) + msg)\n"
+        "    r = parent.recv()\n"
+        "    assert r[:2] == (rid, 'ok'), r\n"
+        "t.join()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -89,6 +134,11 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     from repro_torch.federation.traces import generate_traces
     from repro_torch.kernels.iou_matrix.ops import (batch_iou_matrices
                                                     as kernel_batch)
+    from repro_torch.serving.mp_shards import (
+        ProcessShardedSubsetEvaluationCore, shard_config)
+    from repro_torch.serving.socket_shards import \
+        SocketShardedSubsetEvaluationCore
+    from repro_torch.serving.transports import get_transport
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tr = generate_traces(default_providers(), 4, seed=0)
@@ -101,7 +151,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
                  lambda: PPO(PPOConfig(state_dim=4, n_providers=3)),
                  lambda: DeviceReplayBuffer(8, 4, 3),
                  lambda: batch_iou_matrices(boxes),
-                 lambda: kernel_batch(boxes)):
+                 lambda: kernel_batch(boxes),
+                 lambda: shard_config(voting="affirmative", ablation="wbf",
+                                      iou_thr=0.5, use_kernel="auto",
+                                      device=None),
+                 lambda: ProcessShardedSubsetEvaluationCore(tr, n_shards=1),
+                 lambda: SocketShardedSubsetEvaluationCore(tr, n_shards=1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -117,6 +172,15 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     buf = DeviceReplayBuffer(8, env.state_dim, 3, device="cpu",
                              feature_table=env.device_features())
     assert buf.device.type == "cpu" and buf.indexed
+    # every plane's cores take the device of the env's core: the CPU only
+    # because the env was asked for it
+    for name in ("thread", "process", "socket"):
+        tr_ = get_transport(name).build(env=env, workers=1)
+        try:
+            shard = tr_.core.shards[0] if tr_.inline else tr_.core
+            assert str(shard.device) == "cpu"
+        finally:
+            tr_.close()
 
 
 def test_serve_cli_raises_without_gpu_and_runs_on_cpu():
@@ -131,6 +195,46 @@ def test_serve_cli_raises_without_gpu_and_runs_on_cpu():
                          capture_output=True, text=True, timeout=120)
     assert cpu.returncode == 0, cpu.stderr
     assert "8 requests" in cpu.stdout
+
+
+def test_async_serve_and_shard_host_clis_need_a_gpu_unless_cpu_is_asked():
+    """``launch.shard_host`` and ``launch.serve --async`` raise without a
+    GPU; with ``--device cpu`` two external hosts are joined by the
+    serving front's socket plane (``--hosts``) and the run exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    host = [sys.executable, "-m", "repro_torch.launch.shard_host",
+            "--images", "12", "--seed", "0"]
+    serve = [sys.executable, "-m", "repro_torch.launch.serve",
+             "--federation", "--async", "--images", "12", "--requests",
+             "40", "--workers", "2"]
+    for cmd in (host, serve):
+        gpu = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert gpu.returncode != 0
+        assert "no CUDA device" in gpu.stderr
+    hosts = [subprocess.Popen(host + ["--device", "cpu"], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    try:
+        addrs = []
+        for h in hosts:
+            line = h.stdout.readline()
+            assert "[shard_host] serving" in line, h.stderr.read()
+            addrs.append(line.split(" on ")[1].split()[0])
+        out = subprocess.run(
+            serve + ["--transport", "socket", "--hosts", ",".join(addrs),
+                     "--device", "cpu"],
+            env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "async/socket" in out.stdout and "40 requests" in out.stdout
+        assert "shards=2" in out.stdout
+    finally:
+        for h in hosts:
+            h.terminate()
+            h.wait(timeout=30)
+            h.stdout.close()
+            h.stderr.close()
 
 
 def test_train_cli_raises_without_gpu_and_runs_on_cpu():
