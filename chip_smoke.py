@@ -86,7 +86,27 @@ Phases, each fatal on failure (no result line is printed then):
                p50/p99 (host clock: the drain under a burst, the latency
                under Poisson arrivals), start-up seconds, the card's used
                memory with the plane up and the IoU launches per
-               process.
+               process;
+  8. scenarios — online adaptation on a non-stationary provider pool:
+               the five built-in scenarios at the reference's protocol
+               (horizon 1600, 120 images, beta -0.03, SAC hidden (32, 32),
+               ``run_online(lanes=4, seed=0)``), one process each, side by
+               side, with ``launch.train --scenario provider_outage``: each
+               run's pool statistics equal to the reference's
+               (``benchmarks/results/scenarios.json``), its min and mean
+               post-switch recovery inside the band of the reference's
+               five seeds (min >= 0.8), and its IoU launches, zeroed
+               before and read after, > 0 (``[scenario:*]`` lines); then
+               4096 requests under ``provider_outage`` over phase 3's tab2
+               world (5000 images, one schedule step per request) through
+               ``AsyncFederationService(pool=)`` on the thread and process
+               planes, and under ``price_war`` on the thread plane, one
+               client submitting in order: every result bit-equal to its
+               segment reckoned on a CPU core (the flush's clock read from
+               the serving log), a down provider billed 0 at the 2000 ms
+               timeout, each worker installing each fingerprint once and
+               launching the IoU kernel after its installs
+               (``[async-scenario:*]`` lines).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -1085,8 +1105,9 @@ REF_PPO_COST = (2.191333333333333, 2.7786666666666666, 1.9093333333333333,
 # The band the port's seed-0 run must fall in: a 95% prediction interval
 # for one more draw from the reference's spread (its initial weights and
 # noise streams differ from the reference's, as another seed's would),
-# mean +- t(0.975, n - 1 df) * sd * sqrt(1 + 1/n) over the n = 5 seeds.
-T_975_DF4 = 2.776
+# mean +- t(0.975, n - 1 df) * sd * sqrt(1 + 1/n) over the n seeds (5 for
+# training, 10 for the scenarios of phase 8).
+T_975 = {4: 2.776, 9: 2.262}
 # Its baseline rows on the same env (numpy paths, so the port's are
 # expected equal to the last bit): (AP50, cost).
 REF_ROWS = {"randomN": (20.024240781576854, 1.62),
@@ -1375,12 +1396,12 @@ def train_run(env, algo: str, dev, epochs: int) -> dict:
 
 
 def band(values) -> tuple:
-    """The 95% prediction interval of one more draw from ``values`` (5
-    reference seeds)."""
+    """The 95% prediction interval of one more draw from ``values`` (5 or
+    10 reference seeds)."""
     import math
     import statistics
     m, sd = statistics.mean(values), statistics.stdev(values)
-    half = T_975_DF4 * sd * math.sqrt(1 + 1 / len(values))
+    half = T_975[len(values) - 1] * sd * math.sqrt(1 + 1 / len(values))
     return m - half, m + half
 
 
@@ -2240,7 +2261,436 @@ def async_phase(main3: dict, tab3: dict, dev) -> dict:
                 "external_hosts": external["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: scenarios — online adaptation and scenario serving on the card
+# ---------------------------------------------------------------------------
+
+# The reference's scenario protocol (benchmarks/run.py bench_scenarios):
+# every built-in at horizon 1600 over 120 images, beta -0.03, the pool's
+# status observed, env seed 1; SAC with alpha 0.02, lr 3e-4, gamma 0,
+# hidden (32, 32) through run_online(lanes=4, seed=0).
+SCENARIOS = ("price_war", "provider_outage", "accuracy_drift", "flash_crowd",
+             "provider_churn")
+SCENARIO_RUN = dict(horizon=1600, images=120, beta=-0.03, lanes=4, seed=0)
+# PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py
+# --scenario NAME --seeds 0 1 2 3 4 5 6 7 8 9 (the JAX reference on a CPU):
+# each seed's min and mean post-switch recovery.  Ten seeds, not five:
+# provider_churn's seeds 0-4 span 0.9069-0.9110 and put three of seeds
+# 5-9 (0.9162, 0.9162, 0.9172) outside their own five-seed band.
+SCENARIO_REF = {
+    "price_war": ((0.8718, 0.8776, 0.8882, 0.8925, 0.8881, 0.8798, 0.8883,
+                   0.8816, 0.8742, 0.8658),
+                  (0.8974, 0.8967, 0.9052, 0.9081, 0.9059, 0.9085, 0.9067,
+                   0.8945, 0.8984, 0.8902)),
+    "provider_outage": ((0.874, 0.9001, 0.9001, 0.9005, 0.9001, 0.8922,
+                         0.9005, 0.8873, 0.9005, 0.8911),
+                        (0.8946, 0.9077, 0.9053, 0.9034, 0.9006, 0.9004,
+                         0.9058, 0.8959, 0.9026, 0.8962)),
+    "accuracy_drift": ((0.8697, 0.8645, 0.8326, 0.8656, 0.8628, 0.8578,
+                        0.867, 0.8467, 0.8628, 0.8348),
+                       (0.8749, 0.8849, 0.8647, 0.8808, 0.8763, 0.8717,
+                        0.8913, 0.87, 0.8772, 0.8597)),
+    "flash_crowd": ((0.8736, 0.9067, 0.8885, 0.9029, 0.8945, 0.9165, 0.9064,
+                     0.8776, 0.9004, 0.9091),
+                    (0.8738, 0.9163, 0.8982, 0.905, 0.9001, 0.919, 0.9115,
+                     0.8813, 0.9078, 0.9128)),
+    "provider_churn": ((0.911, 0.9089, 0.9073, 0.9089, 0.9069, 0.9162,
+                        0.9162, 0.9085, 0.91, 0.9172),
+                       (0.9298, 0.9287, 0.9279, 0.9287, 0.9277, 0.9324,
+                        0.9324, 0.9285, 0.9293, 0.9328)),
+}
+RECOVERY_FLOOR = 0.8    # bench_scenarios' acceptance bar after every switch
+# benchmarks/results/scenarios.json: segments_built, cores_built,
+# providers_regenerated (they do not depend on the agent)
+SCENARIO_POOL_STATS = {"price_war": (1, 1, 0), "provider_outage": (2, 2, 0),
+                       "accuracy_drift": (3, 3, 3), "flash_crowd": (1, 1, 0),
+                       "provider_churn": (3, 3, 0)}
+# scenario serving: phase 3's tab2 world (its roster equals the base
+# providers, so the pool's base traces are phase 3's traces) under a
+# schedule of one step per request
+SCENARIO_SERVE = dict(images=5000, horizon=4096)
+
+
+def scenario_worker(name: str) -> int:
+    """``chip_smoke.py --scenario-run NAME``: one online-adaptation run on
+    the card, in a process of its own (the runs are host-bound and go
+    side by side).  Prints its numbers as the last line of JSON."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.core.sac import SAC, SACConfig
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.scenarios import (DynamicProviderPool,
+                                       NonStationaryArmolEnv,
+                                       build_scenario, run_online)
+    dev = torch.device("cuda", 0)
+    cfg = SCENARIO_RUN
+    t0 = time.perf_counter()
+    provs = default_providers()
+    pool = DynamicProviderPool(provs, build_scenario(
+        name, provs, horizon=cfg["horizon"]), n_images=cfg["images"],
+        seed=0, device=dev)
+    env = NonStationaryArmolEnv(pool, mode="gt", beta=cfg["beta"],
+                                observe_pool=True, seed=cfg["seed"] + 1)
+    agent = SAC(SACConfig(state_dim=env.state_dim,
+                          n_providers=env.n_providers, alpha=0.02, lr=3e-4,
+                          gamma=0.0, hidden=(32, 32), seed=cfg["seed"]),
+                device=dev)
+    setup_s = time.perf_counter() - t0
+    grad_steps = [0]
+    block = agent.update_block
+
+    def counted(batches, **kw):
+        grad_steps[0] += len(batches["r"])
+        return block(batches, **kw)
+    agent.update_block = counted
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with Stopwatch(agent, "update_block") as sw:
+        res = run_online(agent, env, lanes=cfg["lanes"], seed=cfg["seed"],
+                         log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES
+    s = res["summary"]
+    mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+            or m == "repro" or m.startswith("repro.")]
+    print(json.dumps({
+        "name": name, "min_recovery": s["min_recovery_post_switch"],
+        "mean_recovery": s["mean_recovery_post_switch"],
+        "mean_cache_hit_rate": s["mean_cache_hit_rate"],
+        "segments": [{k: r[k] for k in ("seg", "recovery", "reward",
+                                        "oracle_reward", "cache_hit_rate")}
+                     for r in res["segments"]],
+        "wall_s": wall, "setup_s": setup_s, "env_steps": s["steps"],
+        "grad_steps": grad_steps[0], "update_s": sw.seconds,
+        "ms_per_grad_step": 1e3 * sw.seconds / max(grad_steps[0], 1),
+        "iou_launches": launches, "pool_stats": s["pool"]["stats"],
+        "bad_modules": mods}))
+    return 0
+
+
+def start_scenario_runs() -> dict:
+    """Phase 8(a)'s five runs and the ``launch.train --scenario`` CLI, all
+    started at once, one process each."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    runs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--scenario-run",
+         name], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in SCENARIOS}
+    runs["cli"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--federation",
+         "--scenario", "provider_outage", "--horizon", "1600", "--images",
+         "120"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return {"procs": runs, "t0": time.perf_counter()}
+
+
+def finish_scenario_runs(started: dict) -> dict:
+    """Wait for phase 8(a)'s processes and hold each run to the reference:
+    pool statistics equal to scenarios.json, min and mean post-switch
+    recovery inside the five-seed band (and min >= RECOVERY_FLOOR), IoU
+    launches > 0; the CLI must exit 0."""
+    procs, out = started["procs"], {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=900)
+            if p.returncode != 0:
+                raise AssertionError(f"scenario run {name} exited "
+                                     f"{p.returncode}: {stderr[-2000:]}")
+            if name == "cli":
+                last = [ln for ln in stdout.splitlines()
+                        if "scenario done" in ln]
+                if not last:
+                    raise AssertionError(f"launch.train --scenario printed "
+                                         f"no result: {stdout[-2000:]}")
+                out["cli"] = last[-1]
+                continue
+            out[name] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        stop_processes([p for p in procs.values() if p.poll() is None])
+    wall = time.perf_counter() - started["t0"]
+    for name in SCENARIOS:
+        r = out[name]
+        if r["bad_modules"]:
+            raise AssertionError(f"{name}: JAX or the reference was "
+                                 f"imported: {r['bad_modules']}")
+        stats = r["pool_stats"]
+        got = (stats["segments_built"], stats["cores_built"],
+               stats["providers_regenerated"])
+        if got != SCENARIO_POOL_STATS[name]:
+            raise AssertionError(f"{name}: pool stats {got}, scenarios.json "
+                                 f"has {SCENARIO_POOL_STATS[name]}")
+        if r["iou_launches"] <= 0:
+            raise AssertionError(f"{name}: the IoU kernel was launched no "
+                                 f"time")
+        r["band_min"] = band(SCENARIO_REF[name][0])
+        r["band_mean"] = band(SCENARIO_REF[name][1])
+        for key, lo_hi in (("min_recovery", r["band_min"]),
+                           ("mean_recovery", r["band_mean"])):
+            if not lo_hi[0] <= r[key] <= lo_hi[1]:
+                raise AssertionError(f"{name}: {key} {r[key]} outside the "
+                                     f"reference band {lo_hi}")
+        if r["min_recovery"] < RECOVERY_FLOOR:
+            raise AssertionError(f"{name}: min recovery {r['min_recovery']}"
+                                 f" < {RECOVERY_FLOOR}")
+        log(f"[scenario:{name}] min recovery {r['min_recovery']} (band "
+            f"{r['band_min'][0]:.4f}-{r['band_min'][1]:.4f}), mean "
+            f"{r['mean_recovery']} (band {r['band_mean'][0]:.4f}-"
+            f"{r['band_mean'][1]:.4f}), mean cache hit "
+            f"{r['mean_cache_hit_rate']}, wall {r['wall_s']:.2f}s, "
+            f"{r['env_steps']} env steps, {r['grad_steps']} gradient steps "
+            f"({r['update_s']:.2f}s, {r['ms_per_grad_step']:.3f} ms each), "
+            f"IoU launches {r['iou_launches']}, pool {json.dumps(stats)}; "
+            f"segments {json.dumps(r['segments'])}")
+    log(f"[scenario:cli] launch.train --scenario provider_outage: "
+        f"{out['cli']}")
+    log(f"[scenario] {len(SCENARIOS)} runs side by side and the CLI in "
+        f"{wall:.1f}s")
+    return {"runs": {n: out[n] for n in SCENARIOS}, "wall_s": wall,
+            "launches": sum(out[n]["iou_launches"] for n in SCENARIOS)}
+
+
+def scenario_world(name: str, dev) -> dict:
+    """Phase 8(b)'s pool over phase 3's tab2 world, and its env."""
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.scenarios import (DynamicProviderPool,
+                                       NonStationaryArmolEnv, build_scenario)
+    t0 = time.perf_counter()
+    provs = default_providers()
+    pool = DynamicProviderPool(provs, build_scenario(
+        name, provs, horizon=SCENARIO_SERVE["horizon"]),
+        n_images=SCENARIO_SERVE["images"], seed=0, device=dev)
+    env = NonStationaryArmolEnv(pool, mode="gt", beta=0.0,
+                                observe_pool=False, seed=1)
+    return {"name": name, "pool": pool, "env": env,
+            "setup_s": time.perf_counter() - t0}
+
+
+def flush_clocks(records, n: int):
+    """Each request's flush clock, from the serving log of one client
+    submitting in order: flushes take contiguous runs of the queue and the
+    clock advances by each flush's size, so a flush's clock is the index
+    of its first request.  Checks the log against that."""
+    import numpy as np
+    starts = sorted({int(r["clock"]) for r in records})
+    if len(records) != n or not starts or starts[0] != 0:
+        raise AssertionError(f"serving log: {len(records)} records for {n} "
+                             f"requests, first clock {starts[:1]}")
+    sizes = {c: 0 for c in starts}
+    for r in records:
+        sizes[int(r["clock"])] += 1
+    ends = starts[1:] + [n]
+    if any(sizes[c] != e - c for c, e in zip(starts, ends)):
+        raise AssertionError("serving log: a flush's size is not the step "
+                             "to the next flush's clock")
+    clocks = np.zeros(n, np.int64)
+    for c, e in zip(starts, ends):
+        clocks[c:e] = c
+    return clocks, list(zip(starts, ends))
+
+
+def reckon_segments(label, world, reqs, got, clocks, flushes, actions,
+                    protos, cpu_cores) -> dict:
+    """Every request against its segment reckoned synchronously on a CPU
+    core (``SubsetEvaluationCore(pool.traces_at(clock), device="cpu")``),
+    the view's fees and latencies, the card run's action: detections,
+    fee and latency bit-equal.  An action may differ from the card's
+    4096-row forward only where a proto lies within AMBIGUOUS of 0.5."""
+    import numpy as np
+    from repro_torch.federation.evaluation import SubsetEvaluationCore
+    from repro_torch.serving.federation_service import FederationService
+    pool, env = world["pool"], world["env"]
+    ref = FederationService(env, None)
+    flips = 0
+    victim = int(np.argmax([p.base_recall for p in pool.roster]))
+    outage_hits = 0
+    for c, e in flushes:
+        view = pool.view_at(c)
+        core = cpu_cores.get(view.dets_key)
+        if core is None:
+            core = cpu_cores[view.dets_key] = SubsetEvaluationCore(
+                pool.traces_at(c), device="cpu")
+        acts = np.stack([g.action for g in got[c:e]])
+        for k in range(c, e):
+            if not np.array_equal(got[k].action, actions[k]):
+                if not np.any(np.abs(protos[k] - 0.5) < AMBIGUOUS):
+                    raise AssertionError(f"{label}: action of request {k} "
+                                         f"differs from the card's forward")
+                flips += 1
+        want = ref._account_batch(reqs[c:e], acts, core=core,
+                                  costs=view.costs,
+                                  latency_ms=view.latencies)
+        for k, w in zip(range(c, e), want):
+            g = got[k]
+            same = (g.cost_milli_usd == w.cost_milli_usd
+                    and g.latency_ms == w.latency_ms
+                    and all(np.array_equal(getattr(g.detections, f),
+                                           getattr(w.detections, f))
+                            for f in ("boxes", "scores", "labels",
+                                      "providers")))
+            if not same:
+                raise AssertionError(f"{label}: request {k} (image "
+                                     f"{reqs[k]}, clock {c}) differs from "
+                                     f"its segment on a CPU core")
+            if not view.active[victim] and g.action[victim] > 0.5:
+                # a down provider bills 0 and costs the timeout
+                n_sel = int((g.action > 0.5).sum())
+                up = (g.action > 0.5) & view.active
+                if g.cost_milli_usd != float(np.sum(view.costs[up])) or \
+                        g.latency_ms != ref.transmission_ms * n_sel + \
+                        pool.outage_timeout_ms:
+                    raise AssertionError(f"{label}: request {k} selected "
+                                         f"the down provider but was not "
+                                         f"billed as down")
+                outage_hits += 1
+    return {"flips": flips, "outage_hits": outage_hits}
+
+
+def segment_report(pool, got, clocks) -> dict:
+    import numpy as np
+    segs = np.asarray([pool.schedule.segment_index(c) for c in clocks])
+    lat = np.asarray([g.latency_ms for g in got])
+    cost = np.asarray([g.cost_milli_usd for g in got])
+    return {f"seg{s}": {
+        "requests": int((segs == s).sum()),
+        "p50_ms": float(np.percentile(lat[segs == s], 50)),
+        "p99_ms": float(np.percentile(lat[segs == s], 99)),
+        "cost_per_request": float(cost[segs == s].mean())}
+        for s in sorted(set(segs.tolist()))}
+
+
+def scenario_plane(label, world, agent, reqs, transport, dev, logdir,
+                   cpu_cores) -> dict:
+    """One plane under the pool: one client thread submits every request
+    in order (so each flush's clock is known from the serving log), each
+    result is held to its segment reckoned on a CPU core; installs and
+    IoU launches by introspection."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.obs import Obs, read_serving_log
+    from repro_torch.serving.async_service import AsyncFederationService
+    from repro_torch.serving.mp_shards import fingerprint_label
+    pool, env = world["pool"], world["env"]
+    obs = Obs(str(logdir / label.replace(" ", "_")))
+    obs.open_serving_log([p.name for p in pool.roster], env.traces.gts)
+    t0 = time.perf_counter()
+    svc = AsyncFederationService(env, agent, pool=pool, transport=transport,
+                                 obs=obs, **ASYNC)
+    out = {"plane": transport, "scenario": world["name"],
+           "requests": len(reqs)}
+    try:
+        torch.cuda.synchronize()
+        out["start_s"] = time.perf_counter() - t0
+        before = [] if svc.transport.inline else svc.core.iou_launches()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        futures = [svc.submit(i) for i in reqs]
+        got = [f.result(timeout=600) for f in futures]
+        out["wall_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        parent = ops.LAUNCHES
+        if not svc.transport.inline:
+            procs = [a - b for a, b in zip(svc.core.iou_launches(), before)]
+            installs = svc.core.installs()
+        st = svc.stats
+        out.update({"req_per_s": len(reqs) / out["wall_s"],
+                    "mean_flush": svc.mean_flush_size(),
+                    "flushes": st["flushes"], "clock": svc.clock})
+    finally:
+        svc.close()
+        obs.close()
+    records = read_serving_log(str(logdir / label.replace(" ", "_") /
+                                   "serving_log.jsonl"))
+    clocks, flushes = flush_clocks(records, len(reqs))
+    if any(int(r["seg"]) != pool.schedule.segment_index(int(r["clock"]))
+           for r in records):
+        raise AssertionError(f"{label}: a log record's seg is not its "
+                             f"clock's segment")
+    actions, protos = world["actions"], world["protos"]
+    out.update(reckon_segments(label, world, reqs, got, clocks, flushes,
+                               actions, protos, cpu_cores))
+    out["segments"] = segment_report(pool, got, clocks)
+    out["iou_launches_parent"] = parent
+    if svc.transport.inline:
+        if parent <= 0:
+            raise AssertionError(f"{label}: the thread plane never launched "
+                                 f"the IoU kernel")
+        out["launches"] = parent
+    else:
+        n = svc.workers
+        touched = [set() for _ in range(n)]
+        for c, e in flushes:
+            key = pool.view_at(c).dets_key
+            for img in reqs[c:e]:
+                touched[img % n].add(key)
+        for sid, (keys, per) in enumerate(zip(touched, installs)):
+            want = {fingerprint_label(k): 1 for k in keys}
+            if per != want:
+                raise AssertionError(f"{label}: worker {sid} installs {per}"
+                                     f", want one per fingerprint {want}")
+        if len(procs) != n or min(procs) <= 0:
+            raise AssertionError(f"{label}: a worker launched the IoU kernel"
+                                 f" no time after its installs: {procs}")
+        out["installs_per_worker"] = [sum(p.values()) for p in installs]
+        out["iou_launches_per_process"] = procs
+        out["launches"] = parent + sum(procs)
+    log(f"[async-scenario:{label}] {json.dumps(out)}")
+    return out
+
+
+def scenario_serving(worlds, main3, dev) -> dict:
+    """Phase 8(b): 4096 requests through ``AsyncFederationService(pool=)``
+    at the CLI defaults, on the thread and process planes under
+    ``provider_outage`` (segments that empty a provider: a new core,
+    installed by each worker), then ``price_war`` (economics only, one
+    core) on the thread plane."""
+    import tempfile
+    import numpy as np
+    t_phase = time.perf_counter()
+    agent = main3["svc"].agent
+    reqs = main3["reqs"][:SCENARIO_SERVE["horizon"]]
+    for w in worlds.values():
+        feats = w["env"].features[reqs]
+        w["actions"] = np.asarray(
+            agent.select_action_batch(feats, deterministic=True)[0],
+            np.float32)
+        w["protos"] = agent.protos(feats, deterministic=True).cpu().numpy()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        logdir = Path(tmp)
+        cores = {}
+        outage = worlds["provider_outage"]
+        for transport in ("thread", "process"):
+            out[transport] = scenario_plane(
+                f"provider_outage {transport}", outage, agent, reqs,
+                transport, dev, logdir, cores)
+        if out["thread"]["outage_hits"] <= 0:
+            raise AssertionError("no request selected the down provider: "
+                                 "the outage accounting went unchecked")
+        war = worlds["price_war"]
+        out["price_war"] = scenario_plane("price_war thread", war, agent,
+                                          reqs, "thread", dev, logdir, {})
+        if war["pool"].stats["cores_built"] != 1 or \
+                len(war["pool"]._sharded) != 1:
+            raise AssertionError(f"price_war built more than one core: "
+                                 f"{war['pool'].cache_report()}")
+    wall = time.perf_counter() - t_phase
+    launches = sum(v["launches"] for v in out.values())
+    log(f"[async-scenario] phase 8(b) in {wall:.1f}s; IoU launches "
+        f"{launches}; ambiguous action flips "
+        f"{[v['flips'] for v in out.values()]}")
+    return {"planes": out, "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--scenario-run":
+        return scenario_worker(sys.argv[2])
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -2336,6 +2786,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     aserve = async_phase(main3, tab3, dev)
 
+    # 8. scenarios: the five online-adaptation runs side by side (and the
+    # train CLI), the scenario-serving worlds built meanwhile, then the
+    # scenario-served planes
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    started = start_scenario_runs()
+    try:
+        worlds = {name: scenario_world(name, dev)
+                  for name in ("provider_outage", "price_war")}
+    finally:
+        online = finish_scenario_runs(started)
+    log(f"[async-scenario] worlds of {SCENARIO_SERVE['images']} images "
+        f"built in {[round(w['setup_s'], 2) for w in worlds.values()]}s "
+        f"beside the runs")
+    sserve = scenario_serving(worlds, main3, dev)
+    log(f"[scenario] phase 8 in {time.perf_counter() - t0:.1f}s")
+
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
             or m.startswith("repro.")]
@@ -2349,7 +2816,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/iou_matrix/kernel.py:19",
         "launches": main3["launches"] + tab3["launches"] + train["launches"]
         + train["launches_ppo"] + aserve["launches"]
-        + aserve["launches_tab3"],
+        + aserve["launches_tab3"] + online["launches"]
+        + sserve["launches"],
         "launches_tab2": main3["launches"],
         "launches_tab3": tab3["launches"],
         "launches_train": train["launches"],
@@ -2357,6 +2825,12 @@ def main() -> int:
         "launches_async": aserve["launches"],
         "launches_async_tab3": aserve["launches_tab3"],
         "launches_async_by_plane": aserve["launches_by_plane"],
+        "launches_scenarios": online["launches"],
+        "launches_scenarios_by_run": {
+            n: r["iou_launches"] for n, r in online["runs"].items()},
+        "launches_async_scenario": sserve["launches"],
+        "launches_async_scenario_by_plane": {
+            k: v["launches"] for k, v in sserve["planes"].items()},
         "mismatches": iou["mismatches"],
         "max_abs_err": iou["max_abs_err"],
         "ms": timing["tab2"]["ms"], "plain_ms": timing["tab2"]["plain_ms"],

@@ -11,10 +11,17 @@ steps costs no host round trip until its caller reads the (K,) metric
 traces.  It runs the same operations in the same order as K
 separate ``step`` calls, so it is bit-identical to them, as the
 reference's scanned block is on the CPU.
+
+``AgentSnapshot`` holds owned copies of an agent's whole state (every
+tensor it learns or steps, and its generator's state): ``take_snapshot``
+clones them, and ``restore_snapshot`` writes a snapshot back in place,
+into the same tensors, which the agent's update closures and AdamW
+states keep referring to.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,3 +69,39 @@ def batch_to(batch: Dict, device: torch.device,
     """numpy (or tensor) batch arrays as float32 tensors on ``device``."""
     return {k: torch.as_tensor(v, dtype=dtype, device=device)
             for k, v in batch.items()}
+
+
+@dataclass(frozen=True)
+class AgentSnapshot:
+    """Owned copies of an agent's state tensors, in the agent's
+    ``state_tensors()`` order, and its generator's state."""
+    tensors: Tuple[torch.Tensor, ...]
+    generator: torch.Tensor
+
+
+def take_snapshot(tensors: Sequence[torch.Tensor],
+                  generator: torch.Generator) -> AgentSnapshot:
+    """Clones of ``tensors`` (on their device) and the generator state: a
+    later update of the agent leaves the snapshot as it was."""
+    with torch.no_grad():
+        return AgentSnapshot(tuple(t.detach().clone() for t in tensors),
+                             generator.get_state())
+
+
+@torch.no_grad()
+def restore_snapshot(tensors: Sequence[torch.Tensor],
+                     generator: torch.Generator,
+                     snap: AgentSnapshot) -> None:
+    """Write ``snap`` back into ``tensors`` in place (``copy_``) and set
+    the generator's state; raises when the snapshot does not fit."""
+    tensors = list(tensors)
+    if len(tensors) != len(snap.tensors):
+        raise ValueError(f"a snapshot of {len(snap.tensors)} tensors for "
+                         f"an agent of {len(tensors)}")
+    for dst, src in zip(tensors, snap.tensors):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"snapshot tensor {tuple(src.shape)} "
+                             f"{src.dtype} does not fit {tuple(dst.shape)} "
+                             f"{dst.dtype}")
+        dst.copy_(src)
+    generator.set_state(snap.generator)

@@ -32,8 +32,9 @@ import torch
 
 from repro_torch.core import networks as nets
 from repro_torch.core.action_space import threshold_map, wolpertinger_select
-from repro_torch.core.blocks import (batch_to, last_step, to_floats,
-                                     update_block)
+from repro_torch.core.blocks import (AgentSnapshot, batch_to, last_step,
+                                     restore_snapshot, take_snapshot,
+                                     to_floats, update_block)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.adamw import adamw_init, adamw_update
 
@@ -118,6 +119,27 @@ class SAC:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed + 1)
         self._block = update_block(self._step)
+
+    # -- state ------------------------------------------------------------
+    def state_tensors(self) -> list:
+        """Every tensor of the agent's state, in a fixed order: the
+        parameters of the actor, q1, q2 and their targets, then each
+        AdamW state's moments and step (the fields
+        ``convert.sac_state_from_jax`` loads)."""
+        out = []
+        for m in (self.actor, self.q1, self.q2, self.q1_targ, self.q2_targ):
+            out += params(m)
+        for opt in (self.opt_actor, self.opt_q1, self.opt_q2):
+            out += opt.mu + opt.nu + [opt.step]
+        return out
+
+    def snapshot(self) -> AgentSnapshot:
+        """Owned copies of the whole state and the generator's state."""
+        return take_snapshot(self.state_tensors(), self.generator)
+
+    def load_snapshot(self, snap: AgentSnapshot) -> None:
+        """Restore ``snap`` in place (the tensors stay the same objects)."""
+        restore_snapshot(self.state_tensors(), self.generator, snap)
 
     # -- acting ----------------------------------------------------------
     def _normal(self, shape) -> torch.Tensor:

@@ -22,8 +22,9 @@ import torch
 
 from repro_torch.core import networks as nets
 from repro_torch.core.action_space import threshold_map
-from repro_torch.core.blocks import (batch_to, last_step, to_floats,
-                                     update_block)
+from repro_torch.core.blocks import (AgentSnapshot, batch_to, last_step,
+                                     restore_snapshot, take_snapshot,
+                                     to_floats, update_block)
 from repro_torch.core.sac import as_states, params, polyak, q_loss
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.adamw import adamw_init, adamw_update
@@ -86,6 +87,28 @@ class TD3:
     def _normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator,
                            device=self.device)
+
+    # -- state ------------------------------------------------------------
+    def state_tensors(self) -> list:
+        """Every tensor of the agent's state, in a fixed order: the
+        parameters of the actor, q1, q2 and the three targets, each AdamW
+        state's moments and step, and the delay counter (the fields
+        ``convert.td3_state_from_jax`` loads)."""
+        out = []
+        for m in (self.actor, self.actor_targ, self.q1, self.q2,
+                  self.q1_targ, self.q2_targ):
+            out += params(m)
+        for opt in (self.opt_actor, self.opt_q1, self.opt_q2):
+            out += opt.mu + opt.nu + [opt.step]
+        return out + [self.step]
+
+    def snapshot(self) -> AgentSnapshot:
+        """Owned copies of the whole state and the generator's state."""
+        return take_snapshot(self.state_tensors(), self.generator)
+
+    def load_snapshot(self, snap: AgentSnapshot) -> None:
+        """Restore ``snap`` in place (the tensors stay the same objects)."""
+        restore_snapshot(self.state_tensors(), self.generator, snap)
 
     # -- acting ----------------------------------------------------------
     def protos(self, s, *, deterministic: bool = False) -> torch.Tensor:

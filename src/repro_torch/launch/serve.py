@@ -32,6 +32,11 @@ request, and the metrics there (``python -m repro_torch.launch.obs_report
 DIR`` renders them); results are bit-identical with or without it.
 ``--trace-sample P`` traces that fraction of requests through the async
 plane (spans in ``trace.jsonl``).
+``--scenario NAME`` (federation) serves under a non-stationary provider
+pool, one schedule step per request (horizon ``max(--requests, 2)``): each
+flush is billed under the segment it was served in, and the process and
+socket planes install each segment in their workers or hosts.  It implies
+``--async``.
 ``--device cpu`` runs the plain PyTorch/numpy versions instead of the
 kernels; without it the run needs a GPU.
 """
@@ -59,10 +64,27 @@ def run_federation(args) -> int:
         topts = {"hosts": [hp.strip() for hp in args.hosts.split(",")
                            if hp.strip()]}
     t0 = time.perf_counter()
-    traces = generate_traces(default_providers(), args.images,
-                             seed=args.seed)
-    env = ArmolEnv(traces, mode="gt", beta=0.0, seed=args.seed + 1,
-                   device=args.device)
+    pool = None
+    if args.scenario:
+        from repro_torch.scenarios import (DynamicProviderPool,
+                                           NonStationaryArmolEnv,
+                                           build_scenario)
+        providers = default_providers()
+        schedule = build_scenario(args.scenario, providers,
+                                  horizon=max(args.requests, 2),
+                                  seed=args.seed)
+        print(schedule.describe())
+        pool = DynamicProviderPool(providers, schedule,
+                                   n_images=args.images, seed=args.seed,
+                                   device=args.device)
+        env = NonStationaryArmolEnv(pool, mode="gt", beta=0.0,
+                                    observe_pool=False, seed=args.seed + 1)
+        traces = env.traces
+    else:
+        traces = generate_traces(default_providers(), args.images,
+                                 seed=args.seed)
+        env = ArmolEnv(traces, mode="gt", beta=0.0, seed=args.seed + 1,
+                       device=args.device)
     agent = SAC(SACConfig(state_dim=env.state_dim,
                           n_providers=env.n_providers, seed=args.seed),
                 device=args.device)
@@ -79,7 +101,8 @@ def run_federation(args) -> int:
             else f"sync, flush={args.flush}")
     print(f"[serve] federation ({mode}, device={env.device}): "
           f"{env.n_providers} providers, {args.images} images, "
-          f"{args.requests} requests (setup {setup_s:.2f}s)")
+          f"{args.requests} requests (setup {setup_s:.2f}s)"
+          + (f", scenario={args.scenario}" if args.scenario else ""))
 
     extra = ""
     if args.use_async:
@@ -87,11 +110,13 @@ def run_federation(args) -> int:
         with AsyncFederationService(
                 env, agent, max_batch=args.max_batch,
                 max_wait_ms=args.max_wait_ms, adaptive=args.adaptive,
-                workers=args.workers, transport=transport,
+                workers=args.workers, pool=pool, transport=transport,
                 transport_options=topts, obs=obs) as svc:
             start_s = time.perf_counter() - t0
             svc.handle_many(reqs[:args.max_batch])      # warm the shards
             svc.reset_stats()
+            if pool is not None:
+                svc.set_clock(0)    # warm-up must not consume the schedule
             if obs is not None:
                 # opened after warm-up: the log covers measured traffic
                 obs.open_serving_log([p.name for p in traces.providers],
@@ -103,6 +128,9 @@ def run_federation(args) -> int:
             extra = (f" mean_flush={svc.mean_flush_size():.1f}"
                      f" flushes={svc.stats['flushes']}"
                      f" shards={svc.workers} (start {start_s:.2f}s)")
+            if pool is not None:
+                extra += (f" segments="
+                          f"{pool.schedule.segment_index(svc.clock) + 1}")
             if obs is not None:
                 obs.write_metrics(svc.extra_metric_snapshots())
     else:
@@ -227,12 +255,19 @@ def main():
                          "(metrics.json, serving_log.jsonl) to this "
                          "directory; results are bit-identical with or "
                          "without it")
+    ap.add_argument("--scenario", default="",
+                    help="federation: serve under a non-stationary "
+                         "provider scenario (one schedule step per "
+                         "request; implies --async)")
     ap.add_argument("--trace-sample", type=float, default=0.0,
                     help="async: fraction of requests traced through the "
                          "plane (0 = tracing off; needs --obs-dir)")
     args = ap.parse_args()
     if args.requests is None:
         args.requests = 400 if args.federation else 8
+    if args.scenario and not args.use_async:
+        # mid-stream pool swaps live in the async service's flush path
+        args.use_async = True
     if args.federation:
         return run_federation(args)
     if not args.arch:

@@ -16,8 +16,18 @@ built by the CUDA IoU kernel.
 events there (``python -m repro_torch.launch.obs_report DIR`` renders
 them); results are bit-identical with or without it.  ``--device cpu``
 runs the plain PyTorch/numpy versions instead of the kernels; without it
-the run needs a GPU.  Online scenarios (``--scenario``) and LM training
-(``--arch``) are not ported yet.
+the run needs a GPU.  LM training (``--arch``) is not ported yet.
+
+``--scenario`` switches to ONLINE adaptation on a non-stationary provider
+pool (``repro_torch.scenarios``): the schedule re-prices, degrades, downs
+and launches providers mid-stream while SAC (or TD3) keeps training,
+reporting per-segment recovery against the per-segment oracle.  Each
+segment whose detections change gets a new subset core, whose IoU tables
+the kernel builds.  ``--blind`` hides the pool's status and fees from the
+state.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --federation \
+        --scenario provider_outage --horizon 1600 --images 120
 """
 from __future__ import annotations
 
@@ -42,6 +52,50 @@ def _finish_obs(obs, args) -> None:
     print(f"[train] observability artifacts in {args.obs_dir} "
           f"(render: python -m repro_torch.launch.obs_report "
           f"{args.obs_dir})")
+
+
+def run_scenario(args) -> int:
+    """Online adaptation through a non-stationary provider scenario, with
+    the reference's agent settings (hidden (32, 32), lr 3e-4, gamma 0;
+    SAC alpha 0.02)."""
+    from repro_torch.core.sac import SAC, SACConfig
+    from repro_torch.core.td3 import TD3, TD3Config
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.scenarios import (DynamicProviderPool,
+                                       NonStationaryArmolEnv,
+                                       build_scenario, run_online)
+
+    if args.algo == "ppo":
+        raise SystemExit("--scenario runs the off-policy online driver; "
+                         "use --algo sac or td3")
+    providers = default_providers()
+    schedule = build_scenario(args.scenario, providers,
+                              horizon=args.horizon, seed=args.seed)
+    print(schedule.describe())
+    pool = DynamicProviderPool(providers, schedule, n_images=args.images,
+                               seed=args.seed, device=args.device)
+    env = NonStationaryArmolEnv(pool, mode=args.mode, beta=args.beta,
+                                observe_pool=not args.blind,
+                                seed=args.seed + 1)
+    kw = dict(state_dim=env.state_dim, n_providers=env.n_providers,
+              lr=3e-4, gamma=0.0, hidden=(32, 32), seed=args.seed)
+    agent = TD3(TD3Config(**kw), device=pool.device) \
+        if args.algo == "td3" else \
+        SAC(SACConfig(alpha=0.02, **kw), device=pool.device)
+    print(f"[train] online scenario {args.scenario} (device={pool.device}): "
+          f"{env.n_providers} providers, {args.images} images, "
+          f"algo={args.algo}, lanes={args.lanes}")
+    obs = _make_obs(args)
+    res = run_online(agent, env, lanes=args.lanes, seed=args.seed,
+                     obs=obs)
+    s = res["summary"]
+    print(f"[train] scenario done: min post-switch recovery="
+          f"{s['min_recovery_post_switch']} mean="
+          f"{s['mean_recovery_post_switch']} "
+          f"cache_hit={s['mean_cache_hit_rate']} ({s['steps']} steps, "
+          f"{s['wall_s']}s) pool={s['pool']['stats']}")
+    _finish_obs(obs, args)
+    return 0
 
 
 def run_federation(args) -> int:
@@ -108,7 +162,15 @@ def main():
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions)")
     ap.add_argument("--scenario", default="",
-                    help="online adaptation (not ported yet)")
+                    help="train ONLINE through a non-stationary provider "
+                         "scenario (price_war, provider_outage, "
+                         "accuracy_drift, flash_crowd, provider_churn, "
+                         "random[:seed])")
+    ap.add_argument("--horizon", type=int, default=1600,
+                    help="scenario: schedule length in env steps")
+    ap.add_argument("--blind", action="store_true",
+                    help="scenario: hide provider status/fees from the "
+                         "state (adaptation from reward alone)")
     ap.add_argument("--arch", default="",
                     help="LM training (not ported yet)")
     ap.add_argument("--obs-dir", default="",
@@ -120,7 +182,7 @@ def main():
         raise SystemExit("LM training (--arch) is not ported yet; use "
                          "--federation")
     if args.scenario:
-        raise SystemExit("--scenario (online adaptation) is not ported yet")
+        return run_scenario(args)
     if args.obs_dir and args.algo == "ppo":
         raise SystemExit("--obs-dir records the off-policy driver (sac, "
                          "td3); the PPO driver has no observability hook")

@@ -31,8 +31,11 @@ At ``max_batch=1, workers=1`` every request is its own flush through the
 same single-state ``select_action`` call ``handle`` makes, so results are
 identical to the synchronous service.
 
-Scenario pools (``pool=``) are not ported yet: they raise
-``NotImplementedError`` naming ROADMAP queue 1 item 5.
+Under a scenario pool (``pool=``) the service keeps a scenario clock, one
+step per request, advanced at dispatch: each flush is accounted under the
+pool's segment at its clock (the segment's fees and latencies; on the
+thread plane its sharded core, on the process and socket planes its
+``PoolSnapshot``, installed once per worker or host and fingerprint).
 """
 from __future__ import annotations
 
@@ -50,7 +53,6 @@ from repro_torch.obs.metrics import MetricsRegistry, merge_snapshots
 from repro_torch.obs.tracing import NULL_SPAN
 from repro_torch.serving.federation_service import (FederationResult,
                                                     FederationService)
-from repro_torch.serving.mp_shards import SCENARIOS_NOT_PORTED
 from repro_torch.serving.transports import ShardTransport, get_transport
 
 # the dict-shaped stats contract: key order and names are part of the
@@ -82,8 +84,12 @@ class AsyncFederationService:
                   wait budget down (see ``_flush_deadline``).  Off by
                   default: fixed ``max_batch``/``max_wait_ms`` behavior
                   is bit-identical to the non-adaptive service.
-    pool:         a scenario provider pool: not ported yet, raises
-                  ``NotImplementedError``.
+    pool:         optional scenario provider pool
+                  (``repro_torch.scenarios.DynamicProviderPool``); the
+                  service keeps a scenario clock (one step per request)
+                  and accounts each flush under the pool's segment at
+                  that clock — cores, fees and latencies swap mid-stream
+                  at flush boundaries.
 
     Use as a context manager (or call ``close()``): a dispatcher thread
     and W worker threads run behind the scenes.
@@ -98,8 +104,6 @@ class AsyncFederationService:
                  obs=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if pool is not None:
-            raise NotImplementedError(SCENARIOS_NOT_PORTED)
         if transport is None:
             transport = "thread"
         self.env = env
@@ -107,9 +111,17 @@ class AsyncFederationService:
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.adaptive = bool(adaptive)
+        # the scenario pool: each flush is accounted under the pool state
+        # at the service's scenario clock, which advances one step per
+        # request — regime swaps apply at flush boundaries, never inside
+        # one.  The inline (thread) plane swaps the whole sharded core;
+        # RPC planes keep ONE worker/host pool for the service's lifetime
+        # and ship each segment across the boundary as a PoolSnapshot.
+        self.pool = pool
+        self._scn_clock = 0
         if isinstance(transport, str):
             transport = get_transport(transport).build(
-                env=env, workers=int(workers),
+                env=env, pool=pool, workers=int(workers),
                 options=transport_options)
         self.transport = transport
         self.core = transport.core
@@ -250,16 +262,35 @@ class AsyncFederationService:
                 batch = [self._queue.popleft()
                          for _ in range(min(self.max_batch,
                                             len(self._queue)))]
+                clock = self._scn_clock
+                if self.pool is not None:
+                    self._scn_clock += len(batch)
             try:
-                self._flush(batch, reason)
+                self._flush(batch, clock, reason)
             except BaseException as e:   # keep serving after a bad flush
                 for _, _, fut, _ in batch:
                     if not fut.done():
                         fut.set_exception(e)
 
-    def _flush(self, batch, reason: str = "flush_full") -> None:
+    def _flush(self, batch, clock: int, reason: str = "flush_full") -> None:
         t0 = time.monotonic() if self._tracer is not None else 0.0
         imgs = np.asarray([b[0] for b in batch], np.int64)
+        costs = lats = None
+        snapshot = None
+        core = self.core
+        if self.pool is not None:
+            # one consistent (core, fee/latency) snapshot per flush:
+            # in-flight assembly keeps its captured segment even if the
+            # clock crosses a boundary while it overlaps the next flush
+            view = self.pool.view_at(clock)
+            costs, lats = view.costs, view.latencies
+            if not self.transport.inline:
+                # the worker/host pool persists across segments; the
+                # segment rides along with each shard request as a recipe
+                snapshot = self.pool.snapshot_at(clock)
+            else:
+                core = self.transport.core_at(clock)
+                self.core = core
         if len(batch) == 1:
             # same single-state act path as FederationService.handle, so
             # max_batch=1 is result-identical to the synchronous service
@@ -292,8 +323,9 @@ class AsyncFederationService:
             self._h_queue_wait.observe_batch(
                 [(now - b[1]) * 1e3 for b in batch])
         # span + log context for the fan-out: the flush span hangs off
-        # the first sampled request of the batch (reason, size); the
-        # serving log gets the flush's reason and plane.  Both are
+        # the first sampled request of the batch (reason, size, clock);
+        # the serving log gets the flush's segment, reason and plane.  Both
+        # are
         # None-cheap when obs is off.
         trace_ctx = None
         if self._tracer is not None:
@@ -308,29 +340,33 @@ class AsyncFederationService:
                     "parent": tids[0], "ts": time.time() - dur_ms / 1e3,
                     "dur_ms": dur_ms,
                     "attrs": {"reason": reason, "size": len(batch),
+                              "clock": int(clock),
                               "n_traced": len(tids)}})
                 trace_ctx = (tids[0], span_id)
         log_ctx = None
         if self.obs is not None and self.obs.serving_log is not None:
-            log_ctx = {"reason": reason, "backend": self.shard_backend}
+            seg = None if self.pool is None else \
+                int(self.pool.schedule.segment_index(clock))
+            log_ctx = {"seg": seg, "clock": int(clock), "reason": reason,
+                       "backend": self.shard_backend, "costs": costs}
         # fan out by home shard; the dispatcher does NOT wait — ensemble
         # assembly overlaps the next flush's agent forward
         if not self.transport.inline:
             # routing/accounting math stays in the parent (one vectorized
             # pass); only (image, mask) rows cross the transport boundary
-            acts, n_sel, masks, cost, lat = self._svc._route_batch(imgs,
-                                                                   actions)
+            acts, n_sel, masks, cost, lat = self._svc._route_batch(
+                imgs, actions, costs=costs, latency_ms=lats)
             for sid, positions in self._partition(imgs).items():
                 self._shard_pools[sid].submit(
                     self._account_shard_mp, sid,
-                    [batch[p] for p in positions], positions,
+                    [batch[p] for p in positions], positions, snapshot,
                     acts, n_sel, masks, cost, lat, trace_ctx, log_ctx)
         else:
             for sid, positions in self._partition(imgs).items():
                 self._shard_pools[sid].submit(
-                    self._account_shard, sid,
+                    self._account_shard, core, sid,
                     [batch[p] for p in positions], actions[positions],
-                    trace_ctx, log_ctx)
+                    costs, lats, trace_ctx, log_ctx)
 
     def _partition(self, imgs: np.ndarray):
         groups: dict = {}
@@ -347,20 +383,21 @@ class AsyncFederationService:
             return None, None
         return trace_ctx
 
-    def _account_shard(self, sid: int, items, actions: np.ndarray,
-                       trace_ctx=None, log_ctx=None) -> None:
+    def _account_shard(self, core, sid: int, items, actions: np.ndarray,
+                       costs, lats, trace_ctx=None, log_ctx=None) -> None:
         """Runs on shard ``sid``'s dedicated thread — the only thread that
-        ever touches that shard's dicts."""
+        ever touches that shard's dicts (for the flush's captured core)."""
         tid, parent = self._trace_parent(trace_ctx)
         try:
             with self._tracer.span("shard_assemble", tid, parent=parent,
                                    shard=sid, n=len(items)) \
                     if tid is not None else NULL_SPAN:
-                shard = self.core.shards[sid]
+                shard = core.shards[sid]
                 imgs = [it[0] for it in items]
                 shard.precompute(imgs)  # one batched IoU launch per shard
                 results = self._svc._account_batch(
-                    imgs, actions, core=shard, log_ctx=log_ctx)
+                    imgs, actions, core=shard, costs=costs,
+                    latency_ms=lats, log_ctx=log_ctx)
             for (_, _, fut, _), res in zip(items, results):
                 fut.set_result(res)
         except BaseException as e:
@@ -368,7 +405,7 @@ class AsyncFederationService:
                 if not fut.done():
                     fut.set_exception(e)
 
-    def _account_shard_mp(self, sid: int, items, positions,
+    def _account_shard_mp(self, sid: int, items, positions, snapshot,
                           acts, n_sel, masks, cost, lat,
                           trace_ctx=None, log_ctx=None) -> None:
         """RPC twin of ``_account_shard``: runs on shard ``sid``'s
@@ -392,7 +429,7 @@ class AsyncFederationService:
                 wire = (self._tracer.wire_context(span)
                         if tid is not None else None)
                 ens = self.transport.eval_batch(sid, imgs, shard_masks,
-                                                trace=wire)
+                                                snapshot, trace=wire)
                 results = self._svc._results_from_ensembles(
                     acts[positions], n_sel[positions], cost[positions],
                     lat[positions], ens)
@@ -400,8 +437,8 @@ class AsyncFederationService:
                     # the process plane never reaches _account_batch, so
                     # the serving log is fed here (same record shape)
                     self._svc._log_serving(
-                        imgs, [int(m) for m in shard_masks], results,
-                        log_ctx)
+                        imgs, [int(m) for m in shard_masks],
+                        log_ctx.get("costs"), results, log_ctx)
             for (_, _, fut, _), res in zip(items, results):
                 fut.set_result(res)
         except BaseException as e:
@@ -411,9 +448,21 @@ class AsyncFederationService:
 
     # -- cache invalidation ----------------------------------------------
     def invalidate_images(self, img_indices: Sequence[int]) -> int:
-        """Drop the images' cached artifacts on every shard of the live
-        plane; returns the entries dropped."""
-        return self.transport.invalidate(img_indices)
+        """Drop the images' cached artifacts EVERYWHERE this service
+        could read them back: the live plane (every regime on every
+        worker or host for the RPC planes) and, with a pool attached,
+        every segment core the pool has built on the parent side.  This
+        is the one invalidation entry point callers should use:
+        invalidating only the pool (or only the plane) leaves the other
+        side serving stale ensembles.  Returns the entries dropped."""
+        dropped = 0
+        if self.pool is not None:
+            dropped += self.pool.invalidate_images(img_indices)
+            if self.transport.inline:
+                # the live sharded core is one of the pool's sharded
+                # cores, already swept above
+                return dropped
+        return dropped + self.transport.invalidate(img_indices)
 
     # -- lifecycle -------------------------------------------------------
     def close(self) -> None:
@@ -436,6 +485,19 @@ class AsyncFederationService:
 
     def mean_flush_size(self) -> float:
         return self.stats["requests"] / max(self.stats["flushes"], 1)
+
+    # -- scenario clock --------------------------------------------------
+    @property
+    def clock(self) -> int:
+        with self._cv:
+            return self._scn_clock
+
+    def set_clock(self, step: int) -> None:
+        """Jump the scenario clock (e.g. to force a regime for tests or
+        to sync with an external scheduler).  Takes effect at the next
+        flush boundary; flushes already dispatched keep their snapshot."""
+        with self._cv:
+            self._scn_clock = int(step)
 
     # -- observability accessors ------------------------------------------
     @property

@@ -55,24 +55,33 @@ class FederationService:
         self._mask_weights = np.left_shift(
             np.int64(1), np.arange(env.n_providers, dtype=np.int64))
 
-    def _route_batch(self, imgs: Sequence[int], actions: np.ndarray):
+    def _route_batch(self, imgs: Sequence[int], actions: np.ndarray,
+                     *, costs: Optional[np.ndarray] = None,
+                     latency_ms: Optional[np.ndarray] = None):
         """One numpy pass over a flush: every request's binary action,
         selection count, subset mask, summed fee, and modeled latency
         (transmission is sequential over selected providers; inference is
-        parallel -> max latency, paper Sec. II-B).
+        parallel -> max latency, paper Sec. II-B).  ``costs`` /
+        ``latency_ms`` override the static per-provider fee/latency
+        vectors for one flush; a scenario pool passes the current
+        segment's vectors (a down provider bills 0 and, if selected,
+        costs its timeout latency).
 
         This is the shard-merge contract of every evaluation plane:
         routing and accounting happen here, in the parent, and only the
         ensemble lookups go to a shard (a thread's dict, a worker
         process's pipe or a shard host's socket)."""
+        costs = self.env.costs if costs is None else \
+            np.asarray(costs, np.float32)
+        lat_v = self.provider_latency_ms if latency_ms is None else \
+            np.asarray(latency_ms, np.float64)
         acts = np.asarray(actions, np.float32).reshape(
             len(imgs), self.env.n_providers)
         sel = acts > 0.5
         n_sel = sel.sum(axis=1)
         masks = (sel * self._mask_weights).sum(axis=1)
-        cost = np.where(sel, self.env.costs, np.float32(0.0)).sum(axis=1)
-        inf_lat = np.max(np.where(sel, self.provider_latency_ms, -np.inf),
-                         axis=1)
+        cost = np.where(sel, costs, np.float32(0.0)).sum(axis=1)
+        inf_lat = np.max(np.where(sel, lat_v, -np.inf), axis=1)
         latency = np.where(n_sel > 0,
                            self.transmission_ms * n_sel + inf_lat, 0.0)
         return acts, n_sel, masks, cost, latency
@@ -96,10 +105,11 @@ class FederationService:
         return out
 
     def _log_serving(self, imgs: Sequence[int], masks: Sequence[int],
-                     results: List[FederationResult],
+                     costs_vec, results: List[FederationResult],
                      log_ctx: Optional[dict] = None, core=None) -> None:
         """Append one serving-log record per request of a flush, with the
-        flush's ``reason`` and ``backend`` from ``log_ctx``.  With an
+        flush's ``seg``, ``clock``, ``reason`` and ``backend`` from
+        ``log_ctx`` and its fee vector (``None``: the static one).  With an
         in-process ``core`` AP50 is read off its memo; the process and
         socket planes pass none and the log scores against its own
         ground truth."""
@@ -112,19 +122,25 @@ class FederationService:
             aps = [core.ap50(int(i), int(m)) if m else 0.0
                    for i, m in zip(imgs, masks)]
         obs.serving_log.log_flush(
-            imgs, masks, self.env.costs, results, reason=ctx.get("reason"),
+            imgs, masks,
+            self.env.costs if costs_vec is None else costs_vec, results,
+            seg=ctx.get("seg"), clock=ctx.get("clock"),
+            reason=ctx.get("reason"),
             backend=ctx.get("backend", "sync"), aps=aps)
 
     def _account_batch(self, imgs: Sequence[int], actions: np.ndarray,
-                       *, core=None, log_ctx: Optional[dict] = None
+                       *, core=None, costs: Optional[np.ndarray] = None,
+                       latency_ms: Optional[np.ndarray] = None,
+                       log_ctx: Optional[dict] = None
                        ) -> List[FederationResult]:
         """Vectorized ensemble + cost/latency bookkeeping for one flush;
         only the memoized ensemble lookups remain per request.  ``core``
         defaults to the env's; the async service passes the request's
-        home shard."""
+        home shard, and under a scenario pool the segment's fees and
+        latencies as ``costs`` / ``latency_ms``."""
         core = self.env.core if core is None else core
-        acts, n_sel, masks, cost, latency = self._route_batch(imgs,
-                                                              actions)
+        acts, n_sel, masks, cost, latency = self._route_batch(
+            imgs, actions, costs=costs, latency_ms=latency_ms)
         ensembles = [
             Detections.empty() if n_sel[t] == 0
             else core.ensemble(int(img), int(masks[t]))
@@ -132,7 +148,8 @@ class FederationService:
         results = self._results_from_ensembles(acts, n_sel, cost, latency,
                                                ensembles)
         if self.obs is not None:
-            self._log_serving(imgs, masks, results, log_ctx, core=core)
+            self._log_serving(imgs, masks, costs, results, log_ctx,
+                              core=core)
         return results
 
     def _account(self, img_idx: int,

@@ -18,6 +18,14 @@ promotes the shards to OS processes:
     (``SubsetEvaluationCore.ensemble_rows``, the wire contract); the
     parent rewraps them with ``Detections.fast``.  Merge order is the
     caller's request order — identical to the thread path.
+  * **mid-stream pool swap** — a scenario segment crosses the process
+    boundary as a :class:`~repro_torch.scenarios.pool.PoolSnapshot` (a
+    picklable *recipe*, not a trace dump): workers hold the pool's base
+    traces and rebuild each segment's TraceSet + core locally (its IoU
+    tables through the kernel on the worker's device), keyed by
+    detection fingerprint, so revisited regimes re-hit their warm
+    per-process caches.  Snapshots install lazily, at most once per
+    (worker, fingerprint).
   * **the parent's device** — the parent resolves ``device`` and
     ``use_kernel`` once and sends them to every worker, the device as a
     string (``"cuda:0"``, ``"cpu"``).  A worker opens that device (and
@@ -30,10 +38,6 @@ promotes the shards to OS processes:
 
 Workers start via the ``spawn`` context, always: a CUDA context does not
 survive ``fork``.  Each worker opens its own context on the card.
-
-Scenario pools (a segment crossing the boundary as a snapshot recipe,
-the ``install`` op, ``for_pool``) are not ported yet: they raise
-``NotImplementedError`` naming ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ import os
 import pickle
 import threading
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -54,9 +59,6 @@ from repro_torch.federation.evaluation import (LatticeResult,
                                                SubsetEvaluationCore,
                                                action_to_mask)
 from repro_torch.federation.traces import TraceSet
-
-SCENARIOS_NOT_PORTED = ("scenario pools are not ported yet "
-                        "(ROADMAP queue 1 item 5)")
 
 
 class ShardWorkerError(RuntimeError):
@@ -107,9 +109,11 @@ def load_kernel_if_used(cfg: Dict[str, object]) -> None:
 class ShardOpHandler:
     """Transport-agnostic implementation of the shard op contract.
 
-    One instance owns a shard's private core (``cores[None]``, over the
-    shipped traces, on the configured device) and executes one op per
-    call, returning ``(status, payload)`` with ``status`` in
+    One instance owns a shard's private cores (``cores[None]`` is the
+    static core over the shipped traces; scenario segments install under
+    their ``dets_key`` and regenerate from the SNAPSHOT's seed, never
+    shard-local state), all on the configured device, and executes one op
+    per call, returning ``(status, payload)`` with ``status`` in
     ``{"ok", "err"}``.  The *transport* frames the reply: the pipe worker
     (:func:`_worker_main`) and the TCP shard host
     (``repro_torch.serving.socket_shards``) both speak ``(rid, op,
@@ -125,13 +129,15 @@ class ShardOpHandler:
     :class:`~repro_torch.obs.metrics.MetricsRegistry` (per-op latency
     histograms) plus per-op wall-time totals; ``introspect`` ships both
     as plain dicts, with this process's IoU kernel launch count
-    (``iou_launches``: the parent cannot see launches made here).  A
+    (``iou_launches``: the parent cannot see launches made here) and the
+    ``install`` ops it received per fingerprint (``installs``).  A
     traced ``eval`` answers with the rows AND a finished span dict.
     """
 
     def __init__(self, traces: TraceSet, cfg: Dict[str, object]):
         import torch
 
+        from repro_torch.federation.vocab import WordGrouper
         from repro_torch.obs.metrics import MetricsRegistry
         self.traces = traces
         self.cfg = cfg
@@ -143,6 +149,8 @@ class ShardOpHandler:
             torch.cuda.synchronize(core.device)
         load_kernel_if_used(cfg)
         self.cores: Dict[object, SubsetEvaluationCore] = {None: core}
+        self._grouper = WordGrouper()
+        self.installs: Dict[str, int] = {}
         self._base_fp = tuple(p.fingerprint(detection_only=True)
                               for p in traces.providers)
         self.wreg = MetricsRegistry()
@@ -197,8 +205,26 @@ class ShardOpHandler:
                 cores[key].precompute(imgs)
                 return "ok", None
             elif op == "install":
-                return "err", SCENARIOS_NOT_PORTED
+                snap = args[0]
+                label = fingerprint_label(snap.dets_key)
+                with self._wall_lock:
+                    self.installs[label] = self.installs.get(label, 0) + 1
+                if snap.dets_key not in cores:
+                    # lazy import: serving pulls the scenario engine only
+                    # when a pool actually crosses the boundary
+                    from repro_torch.scenarios.pool import \
+                        build_segment_traces
+                    seg_traces = build_segment_traces(
+                        self.traces, snap.profiles, snap.dets_key,
+                        snap.seed, self._grouper,
+                        base_det_fp=self._base_fp)
+                    cores[snap.dets_key] = SubsetEvaluationCore(
+                        seg_traces, **self.cfg)
+                return "ok", None
             elif op == "invalidate":
+                # fan out across every installed core: the images' cached
+                # artifacts must die in ALL regimes, or a later segment
+                # swap would serve stale ensembles
                 return "ok", sum(c.invalidate_images(args[0])
                                  for c in cores.values())
             elif op == "introspect":
@@ -228,19 +254,27 @@ class ShardOpHandler:
             self.wreg.histogram(f"worker.op_ms.{op}").observe(dt_ms)
 
     def _introspect(self, key) -> Dict[str, object]:
+        # stats/cache sizes aggregate over EVERY core this shard holds (all
+        # regimes); cache_sizes_by_core keeps the per-fingerprint partition
+        # visible; cached_images stays scoped to the requested key
         from repro_torch.kernels.iou_matrix import ops
         from repro_torch.obs.metrics import counters_snapshot, merge_snapshots
 
         agg_stats: Dict[str, int] = {}
         agg_sizes: Dict[str, int] = {}
-        for c in self.cores.values():
+        by_core: Dict[str, Dict[str, int]] = {}
+        for ck, c in self.cores.items():
+            by_core[fingerprint_label(ck)] = sizes = c.cache_sizes()
             for k, v in c.stats.items():
                 agg_stats[k] = agg_stats.get(k, 0) + v
-            for k, v in c.cache_sizes().items():
+            for k, v in sizes.items():
                 agg_sizes[k] = agg_sizes.get(k, 0) + v
         with self._wall_lock:
             wall = {k: round(v, 6) for k, v in sorted(self.wall.items())}
+            installs = dict(self.installs)
         return {"cache_sizes": agg_sizes,
+                "cache_sizes_by_core": by_core,
+                "installs": installs,
                 "stats": agg_stats,
                 "wall_s": wall,
                 "metrics": merge_snapshots(
@@ -250,6 +284,14 @@ class ShardOpHandler:
                 "n_cores": len(self.cores),
                 "iou_launches": int(ops.LAUNCHES),
                 "pid": os.getpid()}
+
+
+def fingerprint_label(key) -> str:
+    """A compact, stable label of a core's key: ``"base"`` for the static
+    core, ``"fp<crc32>"`` of a segment's ``dets_key`` (a nested tuple,
+    unwieldy as a report key)."""
+    return "base" if key is None else \
+        f"fp{zlib.crc32(repr(key).encode()) & 0xffffffff:08x}"
 
 
 def pickled_traces(traces: TraceSet) -> bytes:
@@ -298,12 +340,15 @@ def _worker_main(conn, cfg: Dict[str, object]) -> None:
             return
 
 
-def snapshot_key(snapshot) -> None:
-    """The wire key of a scenario snapshot: ``None`` (the static core)
-    only, until scenario pools are ported."""
-    if snapshot is not None:
-        raise NotImplementedError(SCENARIOS_NOT_PORTED)
-    return None
+def merge_by_core(reps: Sequence[dict]) -> Dict[str, Dict[str, int]]:
+    """The shards' ``cache_sizes_by_core`` reports summed per label."""
+    agg: Dict[str, Dict[str, int]] = {}
+    for rep in reps:
+        for fp, sizes in rep.get("cache_sizes_by_core", {}).items():
+            slot = agg.setdefault(fp, {})
+            for k, v in sizes.items():
+                slot[k] = slot.get(k, 0) + v
+    return agg
 
 
 def _sum_stats(reps: Sequence[dict]) -> Dict[str, int]:
@@ -369,6 +414,7 @@ class ProcessShardedSubsetEvaluationCore:
         # silently mis-attributing rows to the wrong request
         self._rids = [0] * self.n_shards
         self._failed = [False] * self.n_shards
+        self._installed: List[set] = [set() for _ in range(self.n_shards)]
         self._closed = False
         # observability (bind_obs): parent-side per-shard RPC latency
         # histograms, a condemned-shard counter, and a span recorder for
@@ -410,8 +456,15 @@ class ProcessShardedSubsetEvaluationCore:
         return cls(core.traces, n_shards=n_shards, **core.config(), **kw)
 
     @classmethod
-    def for_pool(cls, pool, n_shards: int, **kw):
-        raise NotImplementedError(SCENARIOS_NOT_PORTED)
+    def for_pool(cls, pool, n_shards: int,
+                 **kw) -> "ProcessShardedSubsetEvaluationCore":
+        """Workers seeded with the pool's BASE traces, on the pool's
+        device: any segment of ``pool`` can then cross the boundary as a
+        ``PoolSnapshot`` recipe (which carries the pool's regeneration
+        seed) and be rebuilt bit-identically in the worker."""
+        return cls(pool.base_traces, n_shards=n_shards,
+                   voting=pool.voting, ablation=pool.ablation,
+                   use_kernel=pool.use_kernel, device=pool.device, **kw)
 
     @property
     def device(self) -> str:
@@ -512,6 +565,22 @@ class ProcessShardedSubsetEvaluationCore:
         with self._locks[sid]:
             return self._rpc_locked(sid, msg)
 
+    def _keyed_rpc(self, sid: int, snapshot, msg_of):
+        """One RPC whose message names a core (``msg_of(key)``): the
+        static core without a snapshot, else the snapshot's segment,
+        installed first if this worker has not seen its fingerprint."""
+        with self._locks[sid]:
+            key = None if snapshot is None else \
+                self._ensure_installed_locked(sid, snapshot)
+            return self._rpc_locked(sid, msg_of(key))
+
+    def _ensure_installed_locked(self, sid: int, snapshot) -> object:
+        key = snapshot.dets_key
+        if key not in self._installed[sid]:
+            self._rpc_locked(sid, ("install", snapshot))
+            self._installed[sid].add(key)
+        return key
+
     # -- shard addressing (same rule as the thread path) ------------------
     def shard_id(self, img_idx: int) -> int:
         return int(img_idx) % self.n_shards
@@ -527,15 +596,17 @@ class ProcessShardedSubsetEvaluationCore:
                 masks: Sequence[int], snapshot=None,
                 trace=None) -> List[Detections]:
         """Ensembles for (image, mask) rows homed on shard ``sid``, in
-        request order.  ``trace`` is an optional ``(trace_id,
-        parent_span_id)`` wire context: the worker times its evaluation
-        and ships a span back, recorded on the bound tracer."""
-        key = snapshot_key(snapshot)
+        request order.  ``snapshot`` scopes the rows to a scenario
+        segment (installed lazily, once per worker per fingerprint).
+        ``trace`` is an optional ``(trace_id, parent_span_id)`` wire
+        context: the worker times its evaluation and ships a span back,
+        recorded on the bound tracer."""
         imgs = [int(i) for i in img_indices]
         ms = [int(m) for m in masks]
         if self._tracer is None:
             trace = None
-        rows = self._rpc(sid, ("eval", imgs, ms, key, trace))
+        rows = self._keyed_rpc(sid, snapshot,
+                               lambda key: ("eval", imgs, ms, key, trace))
         if trace is not None:
             rows, span = rows
             self._tracer.record(span)
@@ -552,17 +623,16 @@ class ProcessShardedSubsetEvaluationCore:
 
     def ap50(self, img_idx: int, mask: int, *, against: str = "gt",
              snapshot=None) -> float:
-        key = snapshot_key(snapshot)
-        return float(self._rpc(self.shard_id(img_idx),
-                               ("ap", int(img_idx), int(mask), against,
-                                key)))
+        return float(self._keyed_rpc(
+            self.shard_id(img_idx), snapshot,
+            lambda key: ("ap", int(img_idx), int(mask), against, key)))
 
     def evaluate_lattice(self, img_idx: int, *, against: str = "gt",
                          snapshot=None) -> LatticeResult:
         """All 2^N-1 subset rows of one image in ONE pipe round-trip."""
-        key = snapshot_key(snapshot)
-        wire = self._rpc(self.shard_id(img_idx),
-                         ("lattice", int(img_idx), against, key))
+        wire = self._keyed_rpc(
+            self.shard_id(img_idx), snapshot,
+            lambda key: ("lattice", int(img_idx), against, key))
         return LatticeResult.from_wire(wire, against)
 
     def cost(self, mask: int) -> float:
@@ -574,13 +644,13 @@ class ProcessShardedSubsetEvaluationCore:
 
     def precompute(self, img_indices: Sequence[int],
                    snapshot=None) -> None:
-        key = snapshot_key(snapshot)
         for sid, imgs in self.partition(img_indices).items():
-            self._rpc(sid, ("precompute", imgs, key))
+            self._keyed_rpc(sid, snapshot,
+                            lambda key: ("precompute", imgs, key))
 
     def invalidate_images(self, img_indices: Sequence[int]) -> int:
         """Same partition rule as every delegated call; each worker drops
-        the images from its core."""
+        the images from every core it holds (all regimes)."""
         dropped = 0
         for sid, imgs in self.partition(img_indices).items():
             dropped += int(self._rpc(sid, ("invalidate", imgs)))
@@ -600,7 +670,7 @@ class ProcessShardedSubsetEvaluationCore:
 
     def worker_wall_s(self) -> Dict[str, float]:
         """Wall seconds each worker spent inside ops (``eval``,
-        ``lattice``, ...), summed across workers."""
+        ``lattice``, ``install``, ...), summed across workers."""
         agg: Dict[str, float] = {}
         for rep in self._introspect():
             for k, v in rep.get("wall_s", {}).items():
@@ -623,6 +693,17 @@ class ProcessShardedSubsetEvaluationCore:
     def iou_launches(self) -> List[int]:
         """Each worker's IoU kernel launch count, in shard order."""
         return [int(rep["iou_launches"]) for rep in self._introspect()]
+
+    def installs(self) -> List[Dict[str, int]]:
+        """Each worker's ``install`` ops by fingerprint label, in shard
+        order (one per fingerprint the worker was sent)."""
+        return [dict(rep["installs"]) for rep in self._introspect()]
+
+    def cache_sizes_by_core(self) -> Dict[str, Dict[str, int]]:
+        """Cache sizes keyed by fingerprint label (``"base"`` for the
+        static core, ``"fp<crc32>"`` per installed regime), summed across
+        workers."""
+        return merge_by_core(self._introspect())
 
     def shard_images(self) -> List[List[int]]:
         """Per-shard cached image ids — the same corruption check surface

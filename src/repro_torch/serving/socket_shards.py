@@ -6,10 +6,13 @@ generalizes that plane to H **hosts**:
 
   * **shard host** — :func:`serve_host` runs a TCP server that owns a
     private :class:`~repro_torch.serving.mp_shards.ShardOpHandler` (one
-    :class:`SubsetEvaluationCore` on the configured device) and answers
+    :class:`SubsetEvaluationCore` per detection fingerprint, on the
+    configured device) and answers
     the *identical* op contract the pipe workers speak: one RPC per
     (flush, shard) returning raw ``(boxes, scores, labels, providers)``
-    rows, ``lattice`` in one round trip, ``invalidate``.  Hosts are
+    rows, ``lattice`` in one round trip, ``install`` for
+    ``PoolSnapshot`` recipes, ``invalidate`` fanned across every regime.
+    Hosts are
     spawned locally (:meth:`SocketShardedSubsetEvaluationCore` with
     ``n_shards=H``) or started standalone via ``python -m
     repro_torch.launch.shard_host`` and joined with ``hosts=``.
@@ -41,8 +44,10 @@ generalizes that plane to H **hosts**:
     (pings never queue behind a long eval).  A host must fail
     ``health_failures_to_condemn`` CONSECUTIVE pings to be condemned.
 
-Scenario pools are not ported yet (``for_pool`` and a ``snapshot`` raise
-``NotImplementedError`` naming ROADMAP queue 1 item 5).
+A scenario pool's segment rides along with each request as a
+``PoolSnapshot``, installed lazily, once per host per fingerprint; a
+requeued request keeps its snapshot, so a survivor installs the segment
+before it answers.
 """
 from __future__ import annotations
 
@@ -64,11 +69,10 @@ from repro_torch.federation.evaluation import (LatticeResult,
                                                SubsetEvaluationCore,
                                                action_to_mask)
 from repro_torch.federation.traces import TraceSet
-from repro_torch.serving.mp_shards import (SCENARIOS_NOT_PORTED,
-                                           ShardOpHandler, ShardWorkerError,
+from repro_torch.serving.mp_shards import (ShardOpHandler, ShardWorkerError,
                                            _sum_stats, load_kernel_if_used,
-                                           pickled_traces, shard_config,
-                                           snapshot_key,
+                                           merge_by_core, pickled_traces,
+                                           shard_config,
                                            trace_content_digest)
 
 _LEN = struct.Struct(">Q")
@@ -285,6 +289,7 @@ class SocketShardedSubsetEvaluationCore:
                 raise ValueError(f"n_shards must be >= 1, got {n_shards}")
             self.n_shards = int(n_shards)
         self._locks = [threading.Lock() for _ in range(self.n_shards)]
+        self._installed: List[set] = [set() for _ in range(self.n_shards)]
         self._failed = [False] * self.n_shards
         self._socks = [None] * self.n_shards
         self._health_socks = [None] * self.n_shards
@@ -316,8 +321,15 @@ class SocketShardedSubsetEvaluationCore:
         return cls(core.traces, n_shards=n_shards, **core.config(), **kw)
 
     @classmethod
-    def for_pool(cls, pool, n_shards: int, **kw):
-        raise NotImplementedError(SCENARIOS_NOT_PORTED)
+    def for_pool(cls, pool, n_shards: int,
+                 **kw) -> "SocketShardedSubsetEvaluationCore":
+        """Hosts seeded with the pool's BASE traces, on the pool's device:
+        any segment of ``pool`` can cross the wire as a ``PoolSnapshot``
+        recipe and be rebuilt bit-identically host-side (the same
+        contract as the process plane)."""
+        return cls(pool.base_traces, n_shards=n_shards,
+                   voting=pool.voting, ablation=pool.ablation,
+                   use_kernel=pool.use_kernel, device=pool.device, **kw)
 
     @property
     def device(self) -> str:
@@ -529,6 +541,22 @@ class SocketShardedSubsetEvaluationCore:
         with self._locks[hid]:
             return self._rpc_locked(hid, msg)
 
+    def _keyed_rpc(self, hid: int, snapshot, msg_of):
+        """One RPC whose message names a core (``msg_of(key)``): the
+        static core without a snapshot, else the snapshot's segment,
+        installed first if this host has not seen its fingerprint."""
+        with self._locks[hid]:
+            key = None if snapshot is None else \
+                self._ensure_installed_locked(hid, snapshot)
+            return self._rpc_locked(hid, msg_of(key))
+
+    def _ensure_installed_locked(self, hid: int, snapshot) -> object:
+        key = snapshot.dets_key
+        if key not in self._installed[hid]:
+            self._rpc_locked(hid, ("install", snapshot))
+            self._installed[hid].add(key)
+        return key
+
     # -- health checking --------------------------------------------------
     def _ping(self, hid: int) -> None:
         """One health ping on the host's dedicated health connection
@@ -605,10 +633,10 @@ class SocketShardedSubsetEvaluationCore:
         through the rebuilt ring and evaluated by the survivors.  The
         caller observes only correct rows or — with every host gone — a
         ``ShardWorkerError``.  ``snapshot`` scopes rows to a scenario
-        segment (not ported yet: it raises); ``trace`` is the
-        ``(trace_id, parent_span_id)`` wire context.
+        segment (installed lazily, once per host per fingerprint; a
+        requeued row keeps it); ``trace`` is the ``(trace_id,
+        parent_span_id)`` wire context.
         """
-        snapshot_key(snapshot)
         imgs = [int(i) for i in img_indices]
         ms = [int(m) for m in masks]
         if self._tracer is None:
@@ -649,8 +677,8 @@ class SocketShardedSubsetEvaluationCore:
 
     def _eval_on_host(self, hid: int, imgs: List[int], ms: List[int],
                       snapshot, trace) -> List[Detections]:
-        rows = self._rpc(hid, ("eval", imgs, ms, snapshot_key(snapshot),
-                               trace))
+        rows = self._keyed_rpc(hid, snapshot,
+                               lambda key: ("eval", imgs, ms, key, trace))
         if trace is not None:
             rows, span = rows
             self._tracer.record(span)
@@ -675,7 +703,7 @@ class SocketShardedSubsetEvaluationCore:
         while True:
             hid = self.shard_id(img_idx)
             try:
-                return self._rpc(hid, msg_of(snapshot_key(snapshot)))
+                return self._keyed_rpc(hid, snapshot, msg_of)
             except ShardWorkerError:
                 if not self._failed[hid]:
                     raise
@@ -705,14 +733,13 @@ class SocketShardedSubsetEvaluationCore:
 
     def precompute(self, img_indices: Sequence[int],
                    snapshot=None) -> None:
-        snapshot_key(snapshot)
         pending = [int(i) for i in img_indices]
         while pending:
             done = []
             for hid, imgs in self.partition(pending).items():
                 try:
-                    self._rpc(hid, ("precompute", imgs,
-                                    snapshot_key(snapshot)))
+                    self._keyed_rpc(hid, snapshot,
+                                    lambda key: ("precompute", imgs, key))
                     done.extend(imgs)
                 except ShardWorkerError:
                     if not self._failed[hid]:
@@ -779,6 +806,14 @@ class SocketShardedSubsetEvaluationCore:
     def iou_launches(self) -> List[int]:
         """Each healthy host's IoU kernel launch count, in host order."""
         return [int(rep["iou_launches"]) for rep in self._introspect()]
+
+    def installs(self) -> List[Dict[str, int]]:
+        """Each healthy host's ``install`` ops by fingerprint label, in
+        host order."""
+        return [dict(rep["installs"]) for rep in self._introspect()]
+
+    def cache_sizes_by_core(self) -> Dict[str, Dict[str, int]]:
+        return merge_by_core(self._introspect())
 
     def shard_images(self) -> List[List[int]]:
         """Per-HEALTHY-host cached image ids (default core): the

@@ -18,15 +18,17 @@
     env's core: the IoU kernel launches from the parent's shard threads
     (thread plane) or inside each worker or host process.
 
-Scenario pools are not ported yet: ``pool=`` raises
-``NotImplementedError``.
+Under a scenario pool (``pool=``) the thread plane swaps the pool's
+sharded segment core per flush (``ThreadTransport.core_at``); the process
+and socket planes start their workers or hosts from the pool's base
+traces (``for_pool``) and receive each segment as a ``PoolSnapshot``
+recipe, which they install once per fingerprint.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Type
 
 from repro_torch.ensemble.boxes import Detections
-from repro_torch.serving.mp_shards import SCENARIOS_NOT_PORTED
 
 _REGISTRY: Dict[str, Type["ShardTransport"]] = {}
 
@@ -93,10 +95,11 @@ class ShardTransport:
     @classmethod
     def build(cls, *, env=None, pool=None, workers: int = 2,
               options: Optional[dict] = None) -> "ShardTransport":
-        """Build the transport's core for a service from ``env.core``'s
+        """Build the transport's core for a service: from ``pool``'s base
+        traces when a scenario pool is attached, else from ``env.core``'s
         traces + config (its device included).  ``options`` carries
         transport-specific knobs (the socket plane's ``hosts``/health
-        parameters).  A scenario ``pool`` is not ported yet and raises."""
+        parameters)."""
         raise NotImplementedError
 
     # -- the service-facing protocol --------------------------------------
@@ -139,14 +142,28 @@ class ThreadTransport(ShardTransport):
 
     inline = True
 
+    def __init__(self, core, pool=None, workers: int = 0):
+        super().__init__(core)
+        self._pool = pool
+        self._workers = workers or core.n_shards
+
     @classmethod
     def build(cls, *, env=None, pool=None, workers: int = 2,
               options: Optional[dict] = None) -> "ThreadTransport":
         from repro_torch.federation.evaluation import \
             ShardedSubsetEvaluationCore
         if pool is not None:
-            raise NotImplementedError(SCENARIOS_NOT_PORTED)
-        return cls(ShardedSubsetEvaluationCore.like(env.core, workers))
+            return cls(pool.sharded_core_at(0, workers), pool, workers)
+        return cls(ShardedSubsetEvaluationCore.like(env.core, workers),
+                   workers=workers)
+
+    def core_at(self, clock: int):
+        """The pool's sharded core for this flush's segment (warm,
+        memoized pool-side); updates ``self.core`` so routing follows the
+        live segment.  Identity without a pool."""
+        if self._pool is not None:
+            self.core = self._pool.sharded_core_at(clock, self._workers)
+        return self.core
 
     def snapshot(self) -> dict:
         from repro_torch.obs.metrics import counters_snapshot
@@ -168,7 +185,8 @@ class ProcessTransport(ShardTransport):
         from repro_torch.serving.mp_shards import \
             ProcessShardedSubsetEvaluationCore
         if pool is not None:
-            raise NotImplementedError(SCENARIOS_NOT_PORTED)
+            return cls(ProcessShardedSubsetEvaluationCore.for_pool(
+                pool, workers))
         return cls(ProcessShardedSubsetEvaluationCore.like(env.core,
                                                            workers))
 
@@ -195,8 +213,6 @@ class SocketTransport(ShardTransport):
               options: Optional[dict] = None) -> "SocketTransport":
         from repro_torch.serving.socket_shards import \
             SocketShardedSubsetEvaluationCore
-        if pool is not None:
-            raise NotImplementedError(SCENARIOS_NOT_PORTED)
         opts = dict(options or {})
         hosts = opts.pop("hosts", None)
         if hosts is not None:
@@ -205,6 +221,9 @@ class SocketTransport(ShardTransport):
                               else hp for hp in hosts)]
         else:
             opts["n_shards"] = workers
+        if pool is not None:
+            return cls(SocketShardedSubsetEvaluationCore.for_pool(
+                pool, opts.pop("n_shards", workers), **opts))
         return cls(SocketShardedSubsetEvaluationCore.like(
             env.core, opts.pop("n_shards", workers), **opts))
 

@@ -651,3 +651,92 @@ def test_socket_hello_refuses_a_host_on_another_device(dev):
         with pytest.raises(ShardWorkerError, match="cfg differs"):
             SocketShardedSubsetEvaluationCore(tr, hosts=host.host_addrs(),
                                               device=dev)
+
+
+# -- scenarios on the card ----------------------------------------------------
+
+def _scenario_pools(dev, name, n_images, horizon=120):
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.scenarios import DynamicProviderPool, build_scenario
+    provs = default_providers()
+    sch = build_scenario(name, provs, horizon=horizon)
+    return [DynamicProviderPool(provs, sch, n_images=n_images, seed=0,
+                                device=d) for d in (dev, "cpu")]
+
+
+@pytest.mark.parametrize("name", ["provider_outage", "accuracy_drift",
+                                  "provider_churn"])
+def test_cuda_pool_segment_cores_equal_a_cpu_pool(dev, name):
+    """Every segment core of a pool on the card (its IoU tables through
+    the kernel) answers a CPU pool's lattice rows and oracle bit for bit;
+    each new core launches the kernel."""
+    from repro_torch.kernels.iou_matrix import ops
+    gpu, cpu = _scenario_pools(dev, name, 40)
+    imgs = list(range(40))
+    for seg in range(gpu.schedule.n_segments):
+        step = gpu.schedule.segment_range(seg)[0]
+        ops.reset_launches()
+        core = gpu.core_at(step)
+        assert core.device.type == "cuda" and core.use_kernel
+        tables = core.stats["tables"]
+        core.precompute(imgs)
+        built = core.stats["tables"] > tables     # a revisited core is warm
+        assert (ops.LAUNCHES > 0) == built
+        ref = cpu.core_at(step)
+        for img in imgs:
+            a, b = core.evaluate_lattice(img), ref.evaluate_lattice(img)
+            for f in ("masks", "ap", "n_dets", "boxes", "scores", "labels"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            assert gpu.oracle(img, step, -0.03) == cpu.oracle(img, step,
+                                                              -0.03)
+    assert gpu.stats == cpu.stats
+
+
+def test_sac_snapshot_and_load_on_the_card_are_bitwise(dev):
+    agent = _agent("sac", dev)
+    rng = np.random.default_rng(0)
+    agent.update_block(_batches(rng, 3))
+    snap = agent.snapshot()
+    assert all(t.device.type == "cuda" for t in snap.tensors)
+    ptrs = [t.data_ptr() for t in agent.state_tensors()]
+    blk = _batches(rng, 5)
+    agent.update_block(blk)
+    after = [t.clone() for t in agent.state_tensors()]
+    agent.load_snapshot(snap)
+    assert [t.data_ptr() for t in agent.state_tensors()] == ptrs
+    for t, s in zip(agent.state_tensors(), snap.tensors):
+        assert torch.equal(t, s)
+    assert torch.equal(agent.generator.get_state(), snap.generator)
+    agent.update_block(blk)
+    for t, a in zip(agent.state_tensors(), after):
+        assert torch.equal(t, a)
+
+
+def test_process_plane_installs_drifted_regimes_on_the_card(dev):
+    """accuracy_drift at 120 images through the process plane on the
+    card: every worker installs each detection regime once, launches the
+    kernel after its installs, and answers a CPU core of the segment."""
+    from repro_torch.federation.evaluation import SubsetEvaluationCore
+    from repro_torch.scenarios import NonStationaryArmolEnv
+    from repro_torch.serving.async_service import AsyncFederationService
+    gpu, _ = _scenario_pools(dev, "accuracy_drift", 120)
+    env = NonStationaryArmolEnv(gpu, mode="gt", beta=0.0,
+                                observe_pool=False, seed=1)
+    imgs = [int(i) for i in np.random.default_rng(2).integers(0, 120, 120)]
+    with AsyncFederationService(env, _FixedAgent([1, 1, 1]), max_batch=1,
+                                workers=2, pool=gpu,
+                                transport="process") as svc:
+        before = svc.core.iou_launches()
+        got = [svc.handle(i) for i in imgs]
+        installs = svc.core.installs()
+        grew = [a - b for a, b in zip(svc.core.iou_launches(), before)]
+    keys = {gpu.view_at(t).dets_key for t in range(120)}
+    assert len(keys) == 3
+    for per in installs:
+        assert sorted(per.values()) == [1, 1, 1]
+    assert min(grew) > 0, grew
+    for step, (img, r) in enumerate(zip(imgs, got)):
+        core = SubsetEvaluationCore(gpu.traces_at(step), device="cpu")
+        want = core.ensemble(img, 7)
+        np.testing.assert_array_equal(r.detections.boxes, want.boxes)
+        np.testing.assert_array_equal(r.detections.scores, want.scores)

@@ -65,9 +65,10 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
 
 def test_a_shard_worker_serving_imports_no_jax_and_no_repro():
     """What a spawned shard worker runs (``mp_shards._worker_main`` behind
-    its pipe: the handshake, an eval, introspection, stop) in a fresh
-    interpreter that imported nothing else: neither JAX nor the reference
-    is loaded."""
+    its pipe: the handshake, an eval, the install of a drifted scenario
+    segment, which imports ``build_segment_traces``, an eval on it,
+    introspection, stop) in a fresh interpreter that imported nothing
+    else: neither JAX nor the reference is loaded."""
     code = (
         "import sys, threading\n"
         "from multiprocessing import Pipe\n"
@@ -75,7 +76,13 @@ def test_a_shard_worker_serving_imports_no_jax_and_no_repro():
         "from repro_torch.federation.traces import generate_traces\n"
         "from repro_torch.serving.mp_shards import _worker_main, "
         "pickled_traces, shard_config\n"
-        "tr = generate_traces(default_providers(), 6, seed=0)\n"
+        "from repro_torch.scenarios import DynamicProviderPool, "
+        "build_scenario\n"
+        "pv = default_providers()\n"
+        "pool = DynamicProviderPool(pv, build_scenario('accuracy_drift', "
+        "pv, horizon=40), n_images=6, seed=0, device='cpu')\n"
+        "tr = pool.base_traces\n"
+        "snap = pool.snapshot_at(20)\n"
         "cfg = shard_config(voting='affirmative', ablation='wbf', "
         "iou_thr=0.5, use_kernel='auto', device='cpu')\n"
         "parent, child = Pipe()\n"
@@ -84,7 +91,8 @@ def test_a_shard_worker_serving_imports_no_jax_and_no_repro():
         "parent.send_bytes(pickled_traces(tr))\n"
         "assert parent.recv() == (0, 'ok', 'ready')\n"
         "for rid, msg in enumerate([('eval', [0, 1, 2], [7, 1, 0], None, "
-        "None), ('introspect', None), ('stop',)], 1):\n"
+        "None), ('install', snap), ('eval', [0, 1], [7, 3], "
+        "snap.dets_key, None), ('introspect', None), ('stop',)], 1):\n"
         "    parent.send((rid,) + msg)\n"
         "    r = parent.recv()\n"
         "    assert r[:2] == (rid, 'ok'), r\n"
@@ -134,6 +142,9 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     from repro_torch.federation.traces import generate_traces
     from repro_torch.kernels.iou_matrix.ops import (batch_iou_matrices
                                                     as kernel_batch)
+    from repro_torch.scenarios import (DynamicProviderPool,
+                                       NonStationaryArmolEnv,
+                                       ScenarioSchedule)
     from repro_torch.serving.mp_shards import (
         ProcessShardedSubsetEvaluationCore, shard_config)
     from repro_torch.serving.socket_shards import \
@@ -155,6 +166,9 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
                  lambda: shard_config(voting="affirmative", ablation="wbf",
                                       iou_thr=0.5, use_kernel="auto",
                                       device=None),
+                 lambda: DynamicProviderPool(
+                     default_providers(), ScenarioSchedule("t", 4, []),
+                     n_images=4),
                  lambda: ProcessShardedSubsetEvaluationCore(tr, n_shards=1),
                  lambda: SocketShardedSubsetEvaluationCore(tr, n_shards=1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -172,6 +186,11 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     buf = DeviceReplayBuffer(8, env.state_dim, 3, device="cpu",
                              feature_table=env.device_features())
     assert buf.device.type == "cpu" and buf.indexed
+    pool = DynamicProviderPool(default_providers(),
+                               ScenarioSchedule("t", 4, []), n_images=4,
+                               device="cpu")
+    assert NonStationaryArmolEnv(pool).device.type == "cpu"
+    assert pool.core_at(0).device.type == "cpu"
     # every plane's cores take the device of the env's core: the CPU only
     # because the env was asked for it
     for name in ("thread", "process", "socket"):
@@ -255,10 +274,18 @@ def test_train_cli_raises_without_gpu_and_runs_on_cpu():
     ppo = subprocess.run(base + ["--algo", "ppo"], env=env,
                          capture_output=True, text=True, timeout=120)
     assert ppo.returncode != 0 and "no CUDA device" in ppo.stderr
-    for extra in (["--scenario", "price_war"], ["--arch", "zamba2-2.7b"]):
-        out = subprocess.run(base + extra + ["--device", "cpu"], env=env,
-                             capture_output=True, text=True, timeout=120)
-        assert out.returncode != 0 and "not ported yet" in out.stderr
+    out = subprocess.run(base + ["--arch", "zamba2-2.7b", "--device", "cpu"],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "not ported yet" in out.stderr
+    # online scenarios are ported: they need the GPU like the rest, and
+    # refuse PPO as the reference does
+    scn = base + ["--scenario", "price_war", "--horizon", "64"]
+    out = subprocess.run(scn, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    out = subprocess.run(scn + ["--algo", "ppo", "--device", "cpu"],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "use --algo sac or td3" in out.stderr
 
 
 def test_lm_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):

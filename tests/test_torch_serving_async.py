@@ -435,11 +435,21 @@ def test_async_service_obs_parity_and_merged_snapshot(tmp_path):
 
 
 def test_scenario_pool_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        AsyncFederationService(ENV, FixedAgent([1, 0, 0]), pool=object())
-    for name in ("thread", "process", "socket"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            get_transport(name).build(env=ENV, pool=object())
+    """Scenario pools are ported: ``pool=`` builds the thread plane from
+    the pool's sharded segment core and keeps a request clock (the
+    scenario cases live in ``tests/test_torch_serving_scenarios.py``)."""
+    from repro_torch.scenarios import DynamicProviderPool, build_scenario
+    provs = default_providers()
+    pool = DynamicProviderPool(provs, build_scenario("price_war", provs,
+                                                     horizon=16),
+                               n_images=12, seed=0, device="cpu")
+    tr = get_transport("thread").build(env=ENV, pool=pool, workers=2)
+    assert tr.core is pool.sharded_core_at(0, 2)
+    assert tr.core_at(15) is pool.sharded_core_at(15, 2)
+    with AsyncFederationService(ENV, FixedAgent([1, 0, 0]), max_batch=1,
+                                workers=2) as svc:
+        svc.handle(0)
+        assert svc.clock == 0           # no pool: the clock never moves
 
 
 # -- the IoU kernel's first load --------------------------------------------

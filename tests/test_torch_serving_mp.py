@@ -223,12 +223,14 @@ def test_invalidate_fans_out_and_recompute_is_identical(proc_core):
 
 
 def test_scenario_ops_not_ported_yet(proc_core):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        proc_core.eval_on(0, [0], [1], snapshot=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ProcessShardedSubsetEvaluationCore.for_pool(object(), 2)
-    with pytest.raises(ShardWorkerError, match="queue 1 item 5"):
+    """The scenario ops are ported: a malformed ``install`` is an op-level
+    error the shard survives, and an ``eval`` against a segment that was
+    never installed fails the same way (real snapshots install first:
+    ``tests/test_torch_serving_scenarios.py``)."""
+    with pytest.raises(ShardWorkerError, match="AttributeError"):
         proc_core._rpc(1, ("install", object()))
+    with pytest.raises(ShardWorkerError, match="KeyError"):
+        proc_core._rpc(1, ("eval", [1], [3], ("never", "installed"), None))
     assert proc_core.ensemble(1, 3) is not None     # the shard survives
 
 

@@ -17,6 +17,22 @@ steps (driver seed s).  ``--algo ppo`` trains PPO at its defaults
 through ``run_ppo`` with 8 lanes and 3 epochs of 1000 steps on the same
 env.  ``chip_smoke.py`` keeps the printed numbers as constants and holds
 the port's run on the card to a band around them.
+
+``--scenario NAME`` instead runs online adaptation at the protocol of
+phase 8 of ``chip_smoke.py`` (the reference's ``bench_scenarios``):
+``DynamicProviderPool(default_providers(), build_scenario(NAME,
+horizon=1600), n_images=120, seed=0)``, ``NonStationaryArmolEnv(mode="gt",
+beta=-0.03, observe_pool=True)`` with env seed s + 1, SAC with alpha
+0.02, lr 3e-4, gamma 0, hidden (32, 32) and agent seed s, through
+``run_online(lanes=4, seed=s)``.  It prints each seed's min and mean
+post-switch recovery and the pool's statistics, then the seeds' band
+(mean +- t(0.975, n-1) * sd * sqrt(1 + 1/n)).  ``--horizon`` and
+``--images`` cut it to a smaller size (the CPU tests' constants).
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py \
+        --scenario provider_outage --seeds 0 1 2 3 4 5 6 7 8 9
+
+(``chip_smoke.py`` keeps the ten seeds of each built-in.)
 """
 from __future__ import annotations
 
@@ -41,14 +57,70 @@ PROTOCOL = dict(lanes=8, epochs=3, steps_per_epoch=1000, batch_size=256,
                 update_iters=50, buffer_capacity=100_000)
 PPO_PROTOCOL = dict(lanes=8, epochs=3, steps_per_epoch=1000)
 IMAGES, BETA = 5000, -0.03
+SCENARIO_HORIZON, SCENARIO_IMAGES = 1600, 120
+# t(0.975, df) for df = 1..9: the two-sided 95% quantile of Student's t
+T975 = {1: 12.706, 2: 4.303, 3: 3.182, 4: 2.776, 5: 2.571, 6: 2.447,
+        7: 2.365, 8: 2.306, 9: 2.262}
+
+
+def run_scenario(args) -> int:
+    from repro.federation.providers import default_providers
+    from repro.scenarios import (DynamicProviderPool, NonStationaryArmolEnv,
+                                 build_scenario, run_online)
+
+    providers = default_providers()
+    horizon = args.horizon or SCENARIO_HORIZON
+    images = args.images or SCENARIO_IMAGES
+    rows = []
+    for seed in args.seeds:
+        t0 = time.perf_counter()
+        schedule = build_scenario(args.scenario, providers, horizon=horizon)
+        pool = DynamicProviderPool(providers, schedule, n_images=images,
+                                   seed=0)
+        env = NonStationaryArmolEnv(pool, mode="gt", beta=BETA,
+                                    observe_pool=True, seed=seed + 1)
+        agent = SAC(SACConfig(state_dim=env.state_dim,
+                              n_providers=env.n_providers, alpha=0.02,
+                              lr=3e-4, gamma=0.0, hidden=(32, 32),
+                              seed=seed))
+        s = run_online(agent, env, lanes=4, seed=seed, log=None)["summary"]
+        rows.append((s["min_recovery_post_switch"],
+                     s["mean_recovery_post_switch"]))
+        print(f"[reference] {args.scenario} seed {seed}: " + json.dumps(
+            {"min_recovery": rows[-1][0], "mean_recovery": rows[-1][1],
+             "mean_cache_hit_rate": s["mean_cache_hit_rate"],
+             "steps": s["steps"], "pool": s["pool"]["stats"],
+             "wall_s": time.perf_counter() - t0}), flush=True)
+    r = np.asarray(rows, np.float64)
+    out = {"scenario": args.scenario, "horizon": horizon, "images": images,
+           "min_recovery": r[:, 0].tolist(),
+           "mean_recovery": r[:, 1].tolist()}
+    if len(r) > 1:
+        n = len(r)
+        half = T975[min(n - 1, 9)] * r.std(axis=0, ddof=1) * \
+            np.sqrt(1 + 1 / n)
+        mid = r.mean(axis=0)
+        out["band_min"] = [mid[0] - half[0], mid[0] + half[0]]
+        out["band_mean"] = [mid[1] - half[1], mid[1] + half[1]]
+    print("[reference] final " + json.dumps(out))
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", choices=["sac", "ppo"], default="sac")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    ap.add_argument("--images", type=int, default=IMAGES)
+    ap.add_argument("--images", type=int, default=None)
+    ap.add_argument("--scenario", default="",
+                    help="online adaptation through this built-in "
+                         "scenario (phase 8's protocol) instead of "
+                         "--algo's training run")
+    ap.add_argument("--horizon", type=int, default=None,
+                    help="--scenario: schedule length (default 1600)")
     args = ap.parse_args()
+    if args.scenario:
+        return run_scenario(args)
+    args.images = args.images or IMAGES
     t0 = time.perf_counter()
     traces = generate_traces(default_providers(), args.images, seed=0)
     env0 = ArmolEnv(traces, mode="gt", beta=BETA, seed=1)
