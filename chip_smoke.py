@@ -95,7 +95,7 @@ Phases, each fatal on failure (no result line is printed then):
                run's pool statistics equal to the reference's
                (``benchmarks/results/scenarios.json``), its min and mean
                post-switch recovery inside the band of the reference's
-               five seeds (min >= 0.8), and its IoU launches, zeroed
+               ten seeds (min >= 0.8), and its IoU launches, zeroed
                before and read after, > 0 (``[scenario:*]`` lines); then
                4096 requests under ``provider_outage`` over phase 3's tab2
                world (5000 images, one schedule step per request) through
@@ -106,7 +106,34 @@ Phases, each fatal on failure (no result line is printed then):
                the serving log), a down provider billed 0 at the 2000 ms
                timeout, each worker installing each fingerprint once and
                launching the IoU kernel after its installs
-               (``[async-scenario:*]`` lines).
+               (``[async-scenario:*]`` lines);
+  9. selection — the cost-accuracy frontier at the reference's protocol
+               (``bench_frontier``: ``price_war``, ``provider_outage`` and
+               ``accuracy_drift`` at horizon 480 over 96 images, beta 0,
+               -0.1, -0.3, -1, MCT budgets 1, 2, 3, seed 0), one
+               ``run_scenario`` on the card per scenario in a process of
+               its own (``--frontier-run NAME``), side by side with
+               ``launch.serve --policy {cascade,mct,hybrid}`` over 5000
+               images and 4096 requests (each must exit 0): baselines and
+               every cascade point with its calibration equal to
+               ``benchmarks/results/frontier.json``, every MCT point with
+               its ``n_observed`` equal to the same world's arms on a CPU
+               core (the card env's features), the mean RL and hybrid
+               points and the paper point's saving inside the band of the
+               reference's ten seeds (``tools/train_reference.py
+               --frontier``), the three invariant flags 1.0, IoU launches
+               > 0 a run (``[frontier:*]`` lines); then the cascade
+               (beta -0.05), MCT (budget 2, warmed on 1024 train images)
+               and the hybrid fronting phase 6's SAC over phase 3's tab2
+               world, their calibration, ``_A``/``_b`` and escalation
+               choice equal to a CPU core's, each serving the 4096
+               requests through ``handle_many`` and the thread and process
+               planes at the CLI defaults, every result bit-equal to the
+               same policy on a CPU core (the hybrid's actor copied to the
+               CPU: a mask may differ only where a proto lies within 1e-5
+               of 0.5), IoU launches in every worker; and the cascade
+               under ``provider_outage`` on the thread plane, each result
+               equal to its segment on a CPU core (``[policy:*]`` lines).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -1776,7 +1803,7 @@ def train_phase(served_env, dev) -> dict:
     log(f"[train] phase 6 in {time.perf_counter() - t_phase:.1f}s")
     return {"summary": summary, "step": step, "idle": idle, "ppo": ppo,
             "replay": replay, "launches": sac["launches"] + td3["launches"],
-            "launches_ppo": ppo["launches"]}
+            "launches_ppo": ppo["launches"], "sac_agent": sac["agent"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1983,7 +2010,8 @@ def shard_launches(svc) -> list:
 
 
 def plane_run(label, env, agent, reqs, want, ref_svc, protos, dev, *,
-              transport, kill_host=False, door=False) -> dict:
+              transport, kill_host=False, door=False,
+              tag: str = "async") -> dict:
     """One plane up, driven by CLIENTS threads that submit all of
     ``reqs`` at once (a burst: every request is queued together, so the
     submit-to-result percentiles read the drain, not a latency), held to
@@ -2038,7 +2066,7 @@ def plane_run(label, env, agent, reqs, want, ref_svc, protos, dev, *,
             out["launches"] += out["kill"]["launches"]
     finally:
         svc.close()
-    log(f"[async:{label}] {json.dumps(out)}")
+    log(f"[{tag}:{label}] {json.dumps(out)}")
     return out
 
 
@@ -2499,7 +2527,8 @@ def reckon_segments(label, world, reqs, got, clocks, flushes, actions,
     core (``SubsetEvaluationCore(pool.traces_at(clock), device="cpu")``),
     the view's fees and latencies, the card run's action: detections,
     fee and latency bit-equal.  An action may differ from the card's
-    4096-row forward only where a proto lies within AMBIGUOUS of 0.5."""
+    4096-row forward only where a proto lies within AMBIGUOUS of 0.5
+    (``protos`` None: nowhere)."""
     import numpy as np
     from repro_torch.federation.evaluation import SubsetEvaluationCore
     from repro_torch.serving.federation_service import FederationService
@@ -2517,7 +2546,8 @@ def reckon_segments(label, world, reqs, got, clocks, flushes, actions,
         acts = np.stack([g.action for g in got[c:e]])
         for k in range(c, e):
             if not np.array_equal(got[k].action, actions[k]):
-                if not np.any(np.abs(protos[k] - 0.5) < AMBIGUOUS):
+                if protos is None or \
+                        not np.any(np.abs(protos[k] - 0.5) < AMBIGUOUS):
                     raise AssertionError(f"{label}: action of request {k} "
                                          f"differs from the card's forward")
                 flips += 1
@@ -2564,11 +2594,13 @@ def segment_report(pool, got, clocks) -> dict:
 
 
 def scenario_plane(label, world, agent, reqs, transport, dev, logdir,
-                   cpu_cores) -> dict:
+                   cpu_cores, decide=None) -> dict:
     """One plane under the pool: one client thread submits every request
     in order (so each flush's clock is known from the serving log), each
     result is held to its segment reckoned on a CPU core; installs and
-    IoU launches by introspection."""
+    IoU launches by introspection.  The actions held to are the world's
+    (the actor's, computed before), or, for a policy that decides by the
+    segment, ``decide(images, clock)`` of each flush."""
     import numpy as np
     import torch
     from repro_torch.kernels.iou_matrix import ops
@@ -2611,7 +2643,11 @@ def scenario_plane(label, world, agent, reqs, transport, dev, logdir,
            for r in records):
         raise AssertionError(f"{label}: a log record's seg is not its "
                              f"clock's segment")
-    actions, protos = world["actions"], world["protos"]
+    if decide is None:
+        actions, protos = world["actions"], world["protos"]
+    else:
+        actions = np.concatenate([decide(reqs[c:e], c) for c, e in flushes])
+        protos = None
     out.update(reckon_segments(label, world, reqs, got, clocks, flushes,
                                actions, protos, cpu_cores))
     out["segments"] = segment_report(pool, got, clocks)
@@ -2688,9 +2724,451 @@ def scenario_serving(worlds, main3, dev) -> dict:
     return {"planes": out, "launches": launches, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: selection policies — the cost-accuracy frontier and policy
+# serving on the card
+# ---------------------------------------------------------------------------
+
+# The reference's frontier protocol (benchmarks/run.py bench_frontier with
+# REPRO_BENCH_IMAGES=96): three scenarios at horizon 480 over 96 images,
+# seed 0; RL (SAC hidden (32, 32) through run_online) and hybrid per beta,
+# the cascade per beta, MCT per budget.
+FRONTIER_RUN = dict(horizon=480, images=96, seed=0)
+FRONTIER_JSON = ROOT / "benchmarks" / "results" / "frontier.json"
+# PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py
+# --frontier --seeds 0 1 2 3 4 5 6 7 8 9 (the JAX reference on a CPU):
+# the mean frontier's RL (AP50, cost) and hybrid (AP50, cost, reward)
+# points per beta, each seed's SAC trained over the seed-0 worlds.
+FRONTIER_REF_RL = {
+    0.0: ((58.81, 59.26, 58.9, 58.9, 58.9, 58.9, 58.81, 58.9, 58.9, 58.9),
+          (2.8341, 2.7852, 2.8513, 2.8542, 2.8542, 2.8369, 2.8455, 2.8542,
+           2.8542, 2.8542)),
+    -0.1: ((58.05, 57.47, 57.67, 56.76, 58.76, 55.62, 57.84, 58.18, 57.36,
+            57.37),
+           (2.2783, 2.0921, 2.4002, 2.0036, 2.745, 2.1461, 2.0955, 2.5869,
+            2.2168, 2.5524)),
+    -0.3: ((48.51, 49.05, 46.68, 48.21, 46.1, 51.06, 49.72, 51.04, 49.48,
+            46.99),
+           (0.9996, 0.9582, 0.9823, 0.9938, 0.9823, 1.0869, 0.9818, 0.9818,
+            0.9634, 0.9329)),
+    -1.0: ((41.96, 37.48, 39.71, 40.45, 44.8, 42.22, 40.88, 45.62, 41.0,
+            42.2),
+           (0.8295, 0.822, 0.8507, 0.8363, 0.8358, 0.8622, 0.7932, 0.8478,
+            0.8473, 0.8249)),
+}
+FRONTIER_REF_HYBRID = {
+    0.0: ((58.81, 59.26, 58.9, 58.9, 58.9, 58.9, 58.81, 58.9, 58.9, 58.9),
+          (2.811, 2.745, 2.8139, 2.8139, 2.8139, 2.7967, 2.8053, 2.8139,
+           2.8139, 2.8139),
+          (0.588, 0.5926, 0.589, 0.589, 0.589, 0.589, 0.588, 0.589, 0.589,
+           0.589)),
+    -0.1: ((56.16, 56.16, 56.25, 56.11, 56.16, 56.16, 56.15, 56.16, 55.99,
+            56.04),
+           (1.6456, 1.6456, 1.6686, 1.6801, 1.6427, 1.6456, 1.6829, 1.6456,
+            1.6634, 1.6255),
+           (0.3947, 0.3947, 0.3934, 0.3908, 0.395, 0.3947, 0.391, 0.3947,
+            0.3913, 0.3956)),
+    -0.3: ((46.08, 45.5, 46.37, 45.51, 45.79, 46.08, 45.51, 46.08, 45.79,
+            45.79),
+           (0.9386, 0.9427, 0.9427, 0.9398, 0.914, 0.9485, 0.945, 0.9456,
+            0.9427, 0.9502),
+           (0.172, 0.1644, 0.1741, 0.1639, 0.1665, 0.1731, 0.1644, 0.1719,
+            0.1679, 0.1677)),
+    # every seed's hybrid keeps the cascade's escalation here: the band is
+    # the cascade's point itself
+    -1.0: ((44.93,) * 10, (0.8708,) * 10, (-0.4283,) * 10),
+}
+# every reference seed holds all three flags; its margins and paper points:
+FRONTIER_REF_FLAGS = ("rl_dominates_cheapest", "rl_dominates_all_providers",
+                      "hybrid_ge_cascade")
+FRONTIER_REF_MARGIN = (-0.001, -0.0033, 0.0, -0.0038, -0.0012, 0.0, -0.0033,
+                       0.0, 0.0, 0.0)
+FRONTIER_REF_PAPER_BETA = (-0.1, -0.1, -0.1, 0.0, -0.1, 0.0, -0.1, -0.1, -0.1,
+                           -0.1)
+FRONTIER_REF_SAVING = (0.2018, 0.267, 0.1591, 0.0, 0.0383, 0.0061, 0.2658,
+                       0.0937, 0.2233, 0.1057)
+# the reference's seed-0 MCT points on a CPU (AP50, cost): printed beside
+# the port's, not compared (numpy's LAPACK build can flip near-ties)
+FRONTIER_REF_MCT = {1.0: (49.47, 0.9319), 2.0: (56.47, 1.8122),
+                    3.0: (57.81, 2.1589)}
+BAND_SLACK = 1e-9     # float representation of the rounded points only
+# policy serving: phase 3's tab2 world at the CLI's knobs
+POLICY = dict(beta=-0.05, budget=2.0, mct_warm=1024, mct_chunk=64,
+              mct_seed=17)
+
+
+def frontier_worker(name: str, dev) -> int:
+    """``chip_smoke.py --frontier-run NAME``: one scenario of the frontier
+    through ``run_scenario`` on the card, in a process of its own; then
+    its baselines, cascade and MCT arms over the same world on a CPU core
+    (the card env's features, a pool on the CPU).  Prints its numbers as
+    the last line of JSON."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.federation.providers import default_providers
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.scenarios import DynamicProviderPool, build_scenario
+    from repro_torch.selection import CascadeSelector
+    from repro_torch.selection import frontier as F
+    cfg = FRONTIER_RUN
+    envs = []
+    real_env = F.NonStationaryArmolEnv
+
+    class Recorded(real_env):
+        """The envs ``run_scenario`` builds, kept for the CPU-core arms."""
+
+        def __init__(self, pool, **kw):
+            super().__init__(pool, **kw)
+            envs.append(self)
+
+    F.NonStationaryArmolEnv = Recorded
+    try:
+        with Stopwatch(F, "CascadeSelector") as cal, \
+                Stopwatch(F, "_train_mct") as mct, \
+                Stopwatch(F, "_rl_arm") as rl:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = F.run_scenario(name, horizon=cfg["horizon"],
+                                 n_images=cfg["images"], betas=F.BETAS,
+                                 budgets=F.BUDGETS, seed=cfg["seed"],
+                                 log=None, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.LAUNCHES
+    finally:
+        F.NonStationaryArmolEnv = real_env
+    card_env = next(e for e in envs if not e.observe_pool)
+    # the same world on a CPU core: baselines, cascade and MCT as
+    # run_scenario scores them
+    t0 = time.perf_counter()
+    provs = default_providers()
+    pool = DynamicProviderPool(provs, build_scenario(
+        name, provs, horizon=cfg["horizon"], seed=cfg["seed"]),
+        n_images=cfg["images"], seed=cfg["seed"], device="cpu")
+    env = real_env(pool, mode="gt", beta=0.0, observe_pool=False,
+                   seed=cfg["seed"] + 1)
+    env.features = card_env.features.copy()
+    cpu = {"cheapest": F.score_masks_fn(env, lambda imgs, step: np.full(
+        len(imgs), F._cheapest_mask(env, step))),
+        "all_providers": F.score_masks_fn(env, lambda imgs, step: np.full(
+            len(imgs), (1 << env.n_providers) - 1)),
+        "cascade": [], "mct": []}
+    for beta in F.BETAS:
+        cas = CascadeSelector(env, beta=beta)
+        pt = F.score_masks_fn(env, lambda imgs, step: cas.select_masks(
+            imgs, step=step), beta=beta)
+        pt["knob"], pt["calibration"] = beta, dict(cas.calibration)
+        cpu["cascade"].append(pt)
+    for budget in F.BUDGETS:
+        m = F._train_mct(env, budget, horizon=cfg["horizon"],
+                         seed=cfg["seed"])
+        pt = F.score_masks_fn(env, lambda imgs, step: m.select_masks(
+            imgs, step=step))
+        pt["knob"], pt["n_observed"] = budget, m.n_observed
+        cpu["mct"].append(pt)
+    cpu_s = time.perf_counter() - t0
+    mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+            or m == "repro" or m.startswith("repro.")]
+    print(json.dumps({
+        "name": name, "result": out, "cpu": cpu, "wall_s": wall,
+        "calibration_s": cal.seconds, "mct_warmup_s": mct.seconds,
+        "rl_s": rl.seconds, "cpu_arms_s": cpu_s, "iou_launches": launches,
+        "pool_stats": card_env.pool.stats, "bad_modules": mods}))
+    return 0
+
+
+def start_frontier_runs() -> dict:
+    """Phase 9(a)'s three scenario runs and the three ``launch.serve
+    --policy`` CLIs of 9(b), all started at once, one process each."""
+    import os
+    from repro_torch.selection.frontier import SCENARIOS as FRONT
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--frontier-run",
+         name], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in FRONT}
+    for policy in ("cascade", "mct", "hybrid"):
+        procs[f"cli:{policy}"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--federation",
+             "--policy", policy, "--images", "5000", "--requests", "4096"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    return {"procs": procs, "names": list(FRONT), "t0": time.perf_counter()}
+
+
+def in_band(label: str, value: float, values) -> tuple:
+    lo, hi = band(values)
+    if not lo - BAND_SLACK <= value <= hi + BAND_SLACK:
+        raise AssertionError(f"{label} {value} outside the reference's "
+                             f"ten-seed band {lo:.4f}-{hi:.4f}")
+    return lo, hi
+
+
+def finish_frontier_runs(started: dict) -> dict:
+    """Wait for 9(a)'s runs and the CLIs, and hold each run: baselines
+    and cascade points (with their calibration) equal to
+    ``benchmarks/results/frontier.json``, MCT points equal to the CPU
+    core's, IoU launches > 0; then the mean frontier: RL and hybrid
+    points inside the reference's ten-seed bands, the invariant flags
+    that every reference seed holds held, the paper point's saving in
+    its band; each CLI exits 0 with its 4096 requests served."""
+    from repro_torch.selection import frontier as F
+    procs, out = started["procs"], {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=900)
+            if p.returncode != 0:
+                raise AssertionError(f"{name} exited {p.returncode}: "
+                                     f"{stderr[-2000:]}")
+            if name.startswith("cli:"):
+                lines = [ln for ln in stdout.splitlines()
+                         if ln.startswith("[serve]")]
+                if not any("4096 requests in" in ln for ln in lines) or \
+                        not any(f"policy={name[4:]}" in ln for ln in lines):
+                    raise AssertionError(f"launch.serve --policy {name[4:]}"
+                                         f" printed no result: {stdout}")
+                out[name] = lines
+                continue
+            out[name] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        stop_processes([p for p in procs.values() if p.poll() is None])
+    wall = time.perf_counter() - started["t0"]
+    ref = json.loads(FRONTIER_JSON.read_text())
+    per = []
+    for name in started["names"]:
+        r = out[name]
+        res, want = r["result"], ref["scenarios"][name]
+        if r["bad_modules"]:
+            raise AssertionError(f"{name}: JAX or the reference was "
+                                 f"imported: {r['bad_modules']}")
+        if res["baselines"] != want["baselines"]:
+            raise AssertionError(f"{name}: baselines {res['baselines']} are "
+                                 f"not frontier.json's")
+        if res["cascade"] != want["cascade"]:
+            raise AssertionError(f"{name}: cascade points {res['cascade']} "
+                                 f"are not frontier.json's")
+        cpu = r["cpu"]
+        if (cpu["cheapest"], cpu["all_providers"]) != \
+                (res["baselines"]["cheapest"],
+                 res["baselines"]["all_providers"]) or \
+                cpu["cascade"] != res["cascade"]:
+            raise AssertionError(f"{name}: a CPU core's baselines or cascade "
+                                 f"differ from the card's")
+        if res["mct"] != cpu["mct"]:
+            raise AssertionError(f"{name}: MCT points {res['mct']} differ "
+                                 f"from a CPU core's {cpu['mct']}")
+        if r["iou_launches"] <= 0:
+            raise AssertionError(f"{name}: the IoU kernel was launched no "
+                                 f"time")
+        per.append(res)
+        log(f"[frontier:{name}] wall {r['wall_s']:.2f}s (RL arms "
+            f"{r['rl_s']:.2f}s, calibration {r['calibration_s']:.3f}s, MCT "
+            f"warm-up {r['mct_warmup_s']:.3f}s; CPU-core arms "
+            f"{r['cpu_arms_s']:.2f}s), IoU launches {r['iou_launches']}, "
+            f"pool {json.dumps(r['pool_stats'])}; rl "
+            f"{json.dumps([(p['knob'], p['ap50'], p['cost']) for p in res['rl']])}"
+            f", hybrid {json.dumps([(p['knob'], p['ap50'], p['cost'], p['escalation']) for p in res['hybrid']])}"
+            f", mct {json.dumps([(p['knob'], p['ap50'], p['cost'], p['n_observed']) for p in res['mct']])}")
+    summary = F.summarize(per, dict(ref["config"]), log=None)
+    for key in ("cheapest", "all_providers"):
+        if summary["baselines"][key] != ref["baselines"][key]:
+            raise AssertionError(f"mean {key} {summary['baselines'][key]} is "
+                                 f"not frontier.json's")
+    if summary["frontier"]["cascade"] != ref["frontier"]["cascade"]:
+        raise AssertionError("the mean cascade frontier is not "
+                             "frontier.json's")
+    bands = {}
+    for arm, refs, keys in (("rl", FRONTIER_REF_RL, ("ap50", "cost")),
+                            ("hybrid", FRONTIER_REF_HYBRID,
+                             ("ap50", "cost", "reward"))):
+        for p in summary["frontier"][arm]:
+            for key, values in zip(keys, refs[p["knob"]]):
+                bands[f"{arm} {p['knob']} {key}"] = in_band(
+                    f"{arm} beta={p['knob']} {key}", p[key], values)
+    inv = summary["invariants"]
+    for flag in FRONTIER_REF_FLAGS:
+        if inv[flag] != 1.0:
+            raise AssertionError(f"{flag} is {inv[flag]}: every reference "
+                                 f"seed holds it")
+    pp = summary["paper_point"]
+    bands["cost_saving_frac"] = in_band("paper point cost_saving_frac",
+                                        pp["cost_saving_frac"],
+                                        FRONTIER_REF_SAVING)
+    log(f"[frontier] mean frontier {json.dumps(summary['frontier'])}")
+    log(f"[frontier] MCT (AP50, cost) beside the reference's seed 0 on a "
+        f"CPU: {json.dumps({p['knob']: [(p['ap50'], p['cost']), FRONTIER_REF_MCT[p['knob']]] for p in summary['frontier']['mct']})}")
+    log(f"[frontier] invariants {json.dumps(inv)} (reference margins "
+        f"{list(FRONTIER_REF_MARGIN)}); paper point {json.dumps(pp)} beside "
+        f"the reference's seed 0 (beta -0.1, AP50 58.05, cost 2.2783, "
+        f"saving 0.2018; frontier.json: 57.52, 2.2927, 0.1967); bands "
+        f"{json.dumps({k: [round(v, 4) for v in b] for k, b in bands.items()})}")
+    for policy in ("cascade", "mct", "hybrid"):
+        log(f"[policy:cli] launch.serve --policy {policy}: "
+            f"{' | '.join(out['cli:' + policy])}")
+    log(f"[frontier] three runs and three CLIs side by side in {wall:.1f}s")
+    return {"runs": {n: out[n] for n in started["names"]},
+            "summary": summary, "wall_s": wall,
+            "launches": sum(out[n]["iou_launches"]
+                            for n in started["names"])}
+
+
+def cpu_copy(agent):
+    """The SAC ``agent`` on the CPU: the same config and every state
+    tensor copied over."""
+    import torch
+    from repro_torch.core.sac import SAC
+    cpu = SAC(agent.cfg, device="cpu")
+    with torch.no_grad():
+        for dst, src in zip(cpu.state_tensors(), agent.state_tensors()):
+            dst.copy_(src.cpu())
+    return cpu
+
+
+def warm_mct(m, env) -> None:
+    """A seeded explore-and-observe stream over the train split."""
+    import numpy as np
+    rng = np.random.default_rng(POLICY["mct_seed"])
+    imgs = [int(i) for i in rng.choice(env.train_idx, POLICY["mct_warm"])]
+    for lo in range(0, len(imgs), POLICY["mct_chunk"]):
+        part = imgs[lo:lo + POLICY["mct_chunk"]]
+        m.observe(part, m.explore_masks(part))
+
+
+def policy_references(main3, sac) -> dict:
+    """Each policy over a CPU core (phase 3's env, its core on the CPU;
+    the hybrid's actor copied to the CPU), and its ``handle_many`` answer
+    to phase 3's 4096 requests: what the card is held to."""
+    import copy
+    from repro_torch.federation.evaluation import SubsetEvaluationCore
+    from repro_torch.selection import (CascadeSelector, HybridSelector,
+                                       MCTSelector)
+    from repro_torch.serving.federation_service import FederationService
+    t0 = time.perf_counter()
+    env = copy.copy(main3["svc"].env)
+    env.core = SubsetEvaluationCore(main3["traces"], device="cpu")
+    mct = MCTSelector(env, budget=POLICY["budget"], seed=0)
+    warm_mct(mct, env)
+    cpu_sac = cpu_copy(sac)
+    pols = {"cascade": CascadeSelector(env, beta=POLICY["beta"]),
+            "mct": mct,
+            "hybrid": HybridSelector(env, cpu_sac, beta=POLICY["beta"])}
+    reqs = main3["reqs"]
+    out = {"env": env, "policies": pols, "want": {}, "svc": {},
+           "protos": cpu_sac.protos(env.features[reqs],
+                                    deterministic=True).numpy()}
+    for name, pol in pols.items():
+        svc = out["svc"][name] = FederationService(env, pol)
+        want = []
+        for lo in range(0, len(reqs), FLUSH):
+            want += svc.handle_many(reqs[lo:lo + FLUSH])
+        out["want"][name] = want
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def policy_serving(main3, sac, cpu, outage, dev) -> dict:
+    """Phase 9(b): the cascade, MCT and hybrid policies built over phase
+    3's card env (calibration and warm-up timed), their state held to the
+    CPU core's, then each through ``handle_many`` and the async thread
+    and process planes at the CLI defaults, every result held to the CPU
+    core's; then the cascade under ``provider_outage`` on the thread
+    plane, each result held to its segment on a CPU core."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.selection import (CascadeSelector, HybridSelector,
+                                       MCTSelector)
+    from repro_torch.serving.federation_service import FederationService
+    t_phase = time.perf_counter()
+    env, reqs = main3["svc"].env, main3["reqs"]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cas = CascadeSelector(env, beta=POLICY["beta"])
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mct = MCTSelector(env, budget=POLICY["budget"], seed=0)
+    warm_mct(mct, env)
+    warm_s = time.perf_counter() - t0
+    hyb = HybridSelector(env, sac, cascade=cas)
+    torch.cuda.synchronize()
+    build_launches = ops.LAUNCHES
+    ref = cpu["policies"]
+    if cas.calibration != ref["cascade"].calibration:
+        raise AssertionError(f"cascade calibration {cas.calibration} is not "
+                             f"the CPU core's "
+                             f"{ref['cascade'].calibration}")
+    if mct._A.tobytes() != ref["mct"]._A.tobytes() or \
+            mct._b.tobytes() != ref["mct"]._b.tobytes() or \
+            mct.n_observed != ref["mct"].n_observed:
+        raise AssertionError("MCT's _A or _b differs from the CPU core's")
+    if hyb.escalation_choice() != ref["hybrid"].escalation_choice():
+        raise AssertionError("the hybrid's escalation choice differs from "
+                             "the CPU core's")
+    log(f"[policy] cascade calibrated on {len(cas.calib_imgs)} train images "
+        f"in {calib_s:.3f}s ({json.dumps(cas.calibration)}); MCT warmed on "
+        f"{mct.n_observed} in {warm_s:.3f}s; hybrid escalates by "
+        f"{hyb.escalation_choice()!r}; each equal to a CPU core's "
+        f"(references built in {cpu['s']:.1f}s); IoU launches "
+        f"{build_launches}")
+    far = np.zeros((len(reqs), env.n_providers), np.float32)  # no flips
+    out = {"calibration_s": calib_s, "mct_warmup_s": warm_s,
+           "launches": build_launches, "runs": {}}
+    for name, pol in (("cascade", cas), ("mct", mct), ("hybrid", hyb)):
+        protos = cpu["protos"] if name == "hybrid" else far
+        want, ref_svc = cpu["want"][name], cpu["svc"][name]
+        svc = FederationService(env, pol)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = []
+        for lo in range(0, len(reqs), FLUSH):
+            got += svc.handle_many(reqs[lo:lo + FLUSH])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        run = {"handle_many": {
+            "req_per_s": len(reqs) / dt, "iou_launches": ops.LAUNCHES,
+            "flips": check_against_sync(f"{name} handle_many", got, want,
+                                        reqs, ref_svc, protos)}}
+        log(f"[policy:{name} handle_many] {json.dumps(run['handle_many'])}")
+        for transport in ("thread", "process"):
+            run[transport] = plane_run(
+                f"{name} {transport}", env, pol, reqs, want, ref_svc, protos,
+                dev, transport=transport, tag="policy")
+        out["runs"][name] = run
+        out["launches"] += run["handle_many"]["iou_launches"] + \
+            run["thread"]["launches"] + run["process"]["launches"]
+    # the cascade under a pool: re-based per segment onto the cheapest
+    # active provider, each flush decided at its clock
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        pcas = CascadeSelector(outage["env"], beta=POLICY["beta"])
+        # phase 8(b) served this world: drop its cached tables so that the
+        # plane builds them again through the kernel
+        outage["pool"].invalidate_images(set(reqs))
+        out["outage_thread"] = scenario_plane(
+            "cascade provider_outage thread", outage, pcas,
+            reqs[:SCENARIO_SERVE["horizon"]], "thread", dev, Path(tmp), {},
+            decide=lambda part, clock: pcas.select_for_images(
+                part, step=clock))
+    out["launches"] += out["outage_thread"]["launches"]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[policy] phase 9(b) in {out['wall_s']:.1f}s; IoU launches "
+        f"{out['launches']}; hybrid flips "
+        f"{[out['runs']['hybrid'][k]['flips'] for k in ('handle_many', 'thread', 'process')]}")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--scenario-run":
         return scenario_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--frontier-run":
+        sys.path.insert(0, str(SRC))
+        import torch
+        return frontier_worker(sys.argv[2], torch.device("cuda", 0))
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -2803,6 +3281,22 @@ def main() -> int:
     sserve = scenario_serving(worlds, main3, dev)
     log(f"[scenario] phase 8 in {time.perf_counter() - t0:.1f}s")
 
+    # 9. selection policies: the frontier's three scenarios and the three
+    # policy CLIs side by side (the CPU-core references built meanwhile),
+    # then the policies served on the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    started = start_frontier_runs()
+    try:
+        cpu_refs = policy_references(main3, train["sac_agent"])
+    except BaseException:
+        stop_processes(list(started["procs"].values()))
+        raise
+    front = finish_frontier_runs(started)
+    pserve = policy_serving(main3, train["sac_agent"], cpu_refs,
+                            worlds["provider_outage"], dev)
+    log(f"[frontier] phase 9 in {time.perf_counter() - t0:.1f}s")
+
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
             or m.startswith("repro.")]
@@ -2817,7 +3311,7 @@ def main() -> int:
         "launches": main3["launches"] + tab3["launches"] + train["launches"]
         + train["launches_ppo"] + aserve["launches"]
         + aserve["launches_tab3"] + online["launches"]
-        + sserve["launches"],
+        + sserve["launches"] + front["launches"] + pserve["launches"],
         "launches_tab2": main3["launches"],
         "launches_tab3": tab3["launches"],
         "launches_train": train["launches"],
@@ -2831,6 +3325,10 @@ def main() -> int:
         "launches_async_scenario": sserve["launches"],
         "launches_async_scenario_by_plane": {
             k: v["launches"] for k, v in sserve["planes"].items()},
+        "launches_frontier": front["launches"],
+        "launches_frontier_by_run": {
+            n: r["iou_launches"] for n, r in front["runs"].items()},
+        "launches_selection": pserve["launches"],
         "mismatches": iou["mismatches"],
         "max_abs_err": iou["max_abs_err"],
         "ms": timing["tab2"]["ms"], "plain_ms": timing["tab2"]["plain_ms"],

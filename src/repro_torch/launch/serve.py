@@ -37,6 +37,16 @@ pool, one schedule step per request (horizon ``max(--requests, 2)``): each
 flush is billed under the segment it was served in, and the process and
 socket planes install each segment in their workers or hosts.  It implies
 ``--async``.
+``--policy {rl,cascade,mct,hybrid}`` (federation) swaps the subset-
+selection policy: the SAC actor, the calibrated cheap-first cascade
+(``--beta``), the online budgeted MCT selector (``--budget``), or the
+cascade's gate fronting a fresh SAC (``repro_torch.selection``); all four
+serve through the same accounting, sync or async, under ``--scenario``
+too.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --federation \\
+        --policy cascade --images 5000 --requests 4096
+
 ``--device cpu`` runs the plain PyTorch/numpy versions instead of the
 kernels; without it the run needs a GPU.
 """
@@ -49,7 +59,6 @@ import numpy as np
 
 
 def run_federation(args) -> int:
-    from repro_torch.core.sac import SAC, SACConfig
     from repro_torch.federation.env import ArmolEnv
     from repro_torch.federation.providers import default_providers
     from repro_torch.federation.traces import generate_traces
@@ -85,9 +94,7 @@ def run_federation(args) -> int:
                                  seed=args.seed)
         env = ArmolEnv(traces, mode="gt", beta=0.0, seed=args.seed + 1,
                        device=args.device)
-    agent = SAC(SACConfig(state_dim=env.state_dim,
-                          n_providers=env.n_providers, seed=args.seed),
-                device=args.device)
+    agent = make_policy(args, env)
     obs = None
     if args.obs_dir:
         from repro_torch.obs import Obs
@@ -99,7 +106,8 @@ def run_federation(args) -> int:
     mode = (f"async/{transport}, workers={args.workers}, "
             f"max_batch={args.max_batch}" if args.use_async
             else f"sync, flush={args.flush}")
-    print(f"[serve] federation ({mode}, device={env.device}): "
+    print(f"[serve] federation ({mode}, policy={args.policy}, "
+          f"device={env.device}): "
           f"{env.n_providers} providers, {args.images} images, "
           f"{args.requests} requests (setup {setup_s:.2f}s)"
           + (f", scenario={args.scenario}" if args.scenario else ""))
@@ -159,6 +167,28 @@ def run_federation(args) -> int:
               f"(render: python -m repro_torch.launch.obs_report "
               f"{args.obs_dir})")
     return 0
+
+
+def make_policy(args, env):
+    """The ``--policy`` agent over ``env``: SAC at its defaults, or a
+    selector (the hybrid fronts a fresh SAC), as the reference's CLI
+    builds them."""
+    from repro_torch.core.sac import SAC, SACConfig
+
+    def sac():
+        return SAC(SACConfig(state_dim=env.state_dim,
+                             n_providers=env.n_providers, seed=args.seed),
+                   device=env.device)
+    if args.policy == "rl":
+        return sac()
+    if args.policy == "cascade":
+        from repro_torch.selection import CascadeSelector
+        return CascadeSelector(env, beta=args.beta)
+    if args.policy == "mct":
+        from repro_torch.selection import MCTSelector
+        return MCTSelector(env, budget=args.budget, seed=args.seed)
+    from repro_torch.selection import HybridSelector
+    return HybridSelector(env, sac(), beta=args.beta)
 
 
 def run_lm(args) -> int:
@@ -246,6 +276,17 @@ def main():
                          "addr:port of shard hosts started with python -m "
                          "repro_torch.launch.shard_host (same --images, "
                          "--seed and device)")
+    ap.add_argument("--policy", default="rl",
+                    choices=("rl", "cascade", "mct", "hybrid"),
+                    help="federation: subset-selection policy: the SAC "
+                         "actor, the calibrated cheap-first cascade, the "
+                         "online budgeted MCT selector, or the cascade "
+                         "gate fronting a SAC actor")
+    ap.add_argument("--beta", type=float, default=-0.05,
+                    help="cascade/hybrid: cost weight of the calibration "
+                         "objective (ap50 + beta * fee)")
+    ap.add_argument("--budget", type=float, default=2.0,
+                    help="mct: per-request fee budget (mUSD)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions)")

@@ -29,7 +29,10 @@ service into an open system:
 
 At ``max_batch=1, workers=1`` every request is its own flush through the
 same single-state ``select_action`` call ``handle`` makes, so results are
-identical to the synchronous service.
+identical to the synchronous service.  A selection policy (an agent with
+``select_for_images``, ``repro_torch.selection``) decides each flush
+from its image indices instead, with no actor forward and no padding,
+at the flush's clock under a pool.
 
 Under a scenario pool (``pool=``) the service keeps a scenario clock, one
 step per request, advanced at dispatch: each flush is accounted under the
@@ -291,7 +294,15 @@ class AsyncFederationService:
             else:
                 core = self.transport.core_at(clock)
                 self.core = core
-        if len(batch) == 1:
+        sel = getattr(self.agent, "select_for_images", None)
+        if sel is not None:
+            # selector policy: decide straight from the image indices, no
+            # feature forward and no padding; the same call the sync
+            # service makes, so both paths are bit-identical by
+            # construction.  The flush clock pins the pool segment.
+            step = clock if self.pool is not None else None
+            actions = np.asarray(sel(imgs, step=step), np.float32)
+        elif len(batch) == 1:
             # same single-state act path as FederationService.handle, so
             # max_batch=1 is result-identical to the synchronous service
             a, _ = self.agent.select_action(

@@ -158,6 +158,9 @@ class FederationService:
         return self._account_batch([img_idx], np.asarray(action)[None])[0]
 
     def handle(self, img_idx: int) -> FederationResult:
+        sel = getattr(self.agent, "select_for_images", None)
+        if sel is not None:     # selector policy: decide from the index
+            return self._account(img_idx, sel([int(img_idx)])[0])
         s = self.env.features[img_idx]
         a, _ = self.agent.select_action(s, deterministic=self.deterministic)
         return self._account(img_idx, np.asarray(a))
@@ -174,13 +177,23 @@ class FederationService:
           transmission); an empty selection is an explicit zero-cost /
           zero-latency result with empty detections.  ``[]`` in, ``[]``
           out.
+        Dispatch: an agent exposing ``select_for_images`` (the
+          ``repro_torch.selection`` policies) is called directly on the
+          image indices, bit-identical to the async path by construction;
+          RL agents go through one batched feature forward.
         Failure modes: an out-of-range image id raises ``IndexError``
           (no partial billing: it raises before any accounting).
         """
         imgs = [int(i) for i in img_indices]
         if not imgs:
             return []
-        policy = agent_policy(self.agent, deterministic=self.deterministic)
-        actions = policy.select_batch(self.env.features[np.asarray(imgs)])
+        sel = getattr(self.agent, "select_for_images", None)
+        if sel is not None:
+            actions = sel(imgs)
+        else:
+            policy = agent_policy(self.agent,
+                                  deterministic=self.deterministic)
+            actions = policy.select_batch(
+                self.env.features[np.asarray(imgs)])
         self.env.core.precompute(imgs)
         return self._account_batch(imgs, actions)

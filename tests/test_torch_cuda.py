@@ -740,3 +740,77 @@ def test_process_plane_installs_drifted_regimes_on_the_card(dev):
         want = core.ensemble(img, 7)
         np.testing.assert_array_equal(r.detections.boxes, want.boxes)
         np.testing.assert_array_equal(r.detections.scores, want.scores)
+
+
+# -- selection policies on the card --------------------------------------------
+
+def test_cascade_calibrated_on_the_card_equals_the_cpu(dev):
+    """The cascade's calibration reads lattice rows built from the card's
+    IoU tables: equal to a CPU core's, and the kernel was launched."""
+    import copy
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.selection import CascadeSelector
+    tr, env, cpu = _serving_world(dev)
+    cpu_env = copy.copy(env)
+    cpu_env.core = cpu
+    for beta in (0.0, -0.05, -0.3):
+        ops.reset_launches()
+        got = CascadeSelector(env, beta=beta)
+        if beta == 0.0:
+            assert ops.LAUNCHES > 0
+        want = CascadeSelector(cpu_env, beta=beta)
+        assert got.calibration == want.calibration
+
+
+def test_selector_flush_on_the_card_equals_the_cpu(dev):
+    """One async flush per selector on the card (MCT warmed on the card's
+    lattices): the same masks as on a CPU core and the same results."""
+    import copy
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.selection import CascadeSelector, MCTSelector
+    from repro_torch.serving.async_service import AsyncFederationService
+    from repro_torch.serving.federation_service import FederationService
+    tr, env, cpu = _serving_world(dev)
+    cpu_env = copy.copy(env)
+    cpu_env.core = cpu
+    imgs = [int(i) for i in np.random.default_rng(3).integers(0, 80, 16)]
+    for make in (lambda e: CascadeSelector(e, beta=-0.05),
+                 lambda e: MCTSelector(e, budget=2.0, seed=0)):
+        sel, ref = make(env), make(cpu_env)
+        if isinstance(sel, MCTSelector):
+            warm = [int(i) for i in env.train_idx]
+            sel.observe(warm, sel.explore_masks(warm))
+            ref.observe(warm, ref.explore_masks(warm))
+            assert sel._A.tobytes() == ref._A.tobytes()
+        np.testing.assert_array_equal(sel.select_masks(imgs),
+                                      ref.select_masks(imgs))
+        ops.reset_launches()
+        with AsyncFederationService(env, sel, max_batch=16,
+                                    max_wait_ms=5000.0, workers=2) as svc:
+            got = svc.handle_many(imgs)
+        assert ops.LAUNCHES > 0
+        want = FederationService(cpu_env, ref).handle_many(imgs)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.action, w.action)
+            assert g.cost_milli_usd == w.cost_milli_usd
+            for f in ("boxes", "scores", "labels", "providers"):
+                np.testing.assert_array_equal(getattr(g.detections, f),
+                                              getattr(w.detections, f))
+
+
+def test_cut_frontier_scenario_on_the_card_launches_the_kernel(dev):
+    """``run_scenario`` on the card (horizon 160, 24 images): every pool
+    core and the RL arm's SAC there, the IoU kernel launched, the
+    baselines and cascade equal to the same cut run on the CPU."""
+    from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.selection.frontier import run_scenario
+    kw = dict(horizon=160, n_images=24, betas=(0.0,), budgets=(1.0,),
+              seed=0, log=None)
+    ops.reset_launches()
+    got = run_scenario("provider_outage", device=dev, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES > 0
+    want = run_scenario("provider_outage", device="cpu", **kw)
+    assert got["baselines"] == want["baselines"]
+    assert got["cascade"] == want["cascade"]
+    assert len(got["rl"]) == len(got["hybrid"]) == len(got["mct"]) == 1

@@ -45,7 +45,10 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
               "repro_torch.serving.socket_shards",
               "repro_torch.serving.client",
               "repro_torch.serving.http_front",
-              "repro_torch.launch.shard_host"):
+              "repro_torch.launch.shard_host",
+              "repro_torch.selection", "repro_torch.selection.cascade",
+              "repro_torch.selection.mct", "repro_torch.selection.hybrid",
+              "repro_torch.selection.frontier"):
         assert m in mods
     code = (
         "import importlib, sys\n"

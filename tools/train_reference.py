@@ -106,6 +106,154 @@ def run_scenario(args) -> int:
     return 0
 
 
+def _band(values) -> list:
+    """mean +- t(0.975, n-1) * sd * sqrt(1 + 1/n) of one quantity."""
+    v = np.asarray(values, np.float64)
+    n = len(v)
+    half = T975[min(n - 1, 9)] * v.std(ddof=1) * np.sqrt(1 + 1 / n)
+    return [float(v.mean() - half), float(v.mean() + half)]
+
+
+def _compose_frontier(per_scenario, F) -> dict:
+    """``run_frontier``'s aggregation of per-scenario arms: the mean
+    frontier, the gated invariants and the paper point."""
+    frontier = {arm: F._mean_points(per_scenario, arm)
+                for arm in ("rl", "cascade", "hybrid", "mct")}
+    cheapest = F._mean_baseline(per_scenario, "cheapest")
+    all_prov = F._mean_baseline(per_scenario, "all_providers")
+    rl = frontier["rl"]
+    dom_cheap = [p for p in rl if p["ap50"] >= cheapest["ap50"] - F.EPS_AP
+                 and p["cost"] <= cheapest["cost"] + F.EPS_COST]
+    dom_all = [p for p in rl if p["ap50"] >= all_prov["ap50"] - F.EPS_AP
+               and p["cost"] <= all_prov["cost"] + F.EPS_COST]
+    margins = [h["reward"] - c["reward"] for h, c in
+               zip(frontier["hybrid"], frontier["cascade"])]
+    invariants = {
+        "rl_dominates_cheapest": 1.0 if dom_cheap else 0.0,
+        "rl_dominates_all_providers": 1.0 if dom_all else 0.0,
+        "hybrid_ge_cascade": 1.0 if min(margins) >= -F.EPS_REWARD else 0.0,
+        "hybrid_min_reward_margin": round(float(min(margins)), 4)}
+    matched = dom_all or [max(rl, key=lambda p: p["ap50"])]
+    best = min(matched, key=lambda p: p["cost"])
+    paper_point = {
+        "beta": best["knob"], "ap50": best["ap50"], "cost": best["cost"],
+        "accuracy_matched": bool(dom_all),
+        "cost_saving_frac": round(1.0 - best["cost"] /
+                                  max(all_prov["cost"], 1e-9), 4)}
+    return {"baselines": {"cheapest": cheapest, "all_providers": all_prov},
+            "frontier": frontier, "invariants": invariants,
+            "paper_point": paper_point}
+
+
+def run_frontier_seeds(args) -> int:
+    """The frontier's RL and hybrid arms at each seed over the seed-0
+    worlds (``run_frontier``'s protocol); baselines, cascade and MCT are
+    the seed-0 world's, as ``run_scenario`` computes them."""
+    from repro.federation.providers import default_providers
+    from repro.scenarios import (DynamicProviderPool, NonStationaryArmolEnv,
+                                 build_scenario)
+    from repro.selection import frontier as F
+    from repro.selection.cascade import CascadeSelector
+    from repro.selection.hybrid import HybridSelector
+
+    horizon = args.horizon or 480
+    images = args.images or 96
+    worlds = []
+    t0 = time.perf_counter()
+    for name in F.SCENARIOS:
+        providers = default_providers()
+        schedule = build_scenario(name, providers, horizon=horizon, seed=0)
+        pool = DynamicProviderPool(providers, schedule, n_images=images,
+                                   seed=0)
+        env = NonStationaryArmolEnv(pool, mode="gt", beta=0.0,
+                                    observe_pool=False, seed=1)
+        w = {"name": name, "pool": pool, "env": env, "cascade": [],
+             "cas": [], "mct": [], "baselines": {}}
+        w["baselines"]["cheapest"] = F.score_masks_fn(
+            env, lambda imgs, step, env=env: np.full(
+                len(imgs), F._cheapest_mask(env, step)))
+        w["baselines"]["all_providers"] = F.score_masks_fn(
+            env, lambda imgs, step, env=env: np.full(
+                len(imgs), (1 << env.n_providers) - 1))
+        for beta in F.BETAS:
+            cas = CascadeSelector(env, beta=beta)
+            pt = F.score_masks_fn(
+                env, lambda imgs, step, cas=cas: cas.select_masks(
+                    imgs, step=step), beta=beta)
+            pt["knob"] = beta
+            pt["calibration"] = dict(cas.calibration)
+            w["cascade"].append(pt)
+            w["cas"].append(cas)
+        for budget in F.BUDGETS:
+            m = F._train_mct(env, budget, horizon=horizon, seed=0)
+            pt = F.score_masks_fn(
+                env, lambda imgs, step, m=m: m.select_masks(imgs, step=step))
+            pt["knob"] = budget
+            pt["n_observed"] = m.n_observed
+            w["mct"].append(pt)
+        worlds.append(w)
+        print(f"[reference] frontier {name} seed-0 arms: " + json.dumps(
+            {"baselines": w["baselines"], "cascade": w["cascade"],
+             "mct": w["mct"]}), flush=True)
+    print(f"[reference] worlds and seed-0 arms in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    per_seed = []
+    for seed in args.seeds:
+        t0 = time.perf_counter()
+        per_scenario = []
+        for w in worlds:
+            out = {"scenario": w["name"], "baselines": w["baselines"],
+                   "rl": [], "cascade": w["cascade"], "hybrid": [],
+                   "mct": w["mct"]}
+            for beta, cas in zip(F.BETAS, w["cas"]):
+                rl = F._rl_arm(w["pool"], w["env"], beta, seed=seed,
+                               log=None)
+                out["rl"].append(rl["point"])
+                hyb = HybridSelector(w["env"], cascade=cas,
+                                     rl_masks_fn=rl["masks_fn"])
+                pt = F.score_masks_fn(
+                    w["env"], lambda imgs, step, hyb=hyb: hyb.select_masks(
+                        imgs, step=step), beta=beta)
+                pt["knob"] = beta
+                pt["escalation"] = dict(sorted(hyb._seg_choice.items()))
+                out["hybrid"].append(pt)
+            per_scenario.append(out)
+        res = _compose_frontier(per_scenario, F)
+        res["seed"] = seed
+        res["rl_by_scenario"] = {
+            s["scenario"]: [{k: p[k] for k in ("knob", "ap50", "cost",
+                                               "reward")} for p in s["rl"]]
+            for s in per_scenario}
+        res["wall_s"] = time.perf_counter() - t0
+        per_seed.append(res)
+        print(f"[reference] frontier seed {seed}: " + json.dumps(
+            {k: res[k] for k in ("frontier", "invariants", "paper_point",
+                                 "wall_s")}), flush=True)
+    final = {"horizon": horizon, "images": images, "seeds": args.seeds,
+             "baselines": per_seed[0]["baselines"],
+             "cascade": per_seed[0]["frontier"]["cascade"],
+             "mct": per_seed[0]["frontier"]["mct"]}
+    for arm in ("rl", "hybrid"):
+        final[arm] = [{
+            "knob": pts[0]["knob"],
+            **{key: [p[key] for p in pts] for key in ("ap50", "cost",
+                                                      "reward")}}
+            for pts in zip(*[r["frontier"][arm] for r in per_seed])]
+    final["invariants"] = {k: [r["invariants"][k] for r in per_seed]
+                           for k in per_seed[0]["invariants"]}
+    final["paper_point"] = {k: [r["paper_point"][k] for r in per_seed]
+                            for k in per_seed[0]["paper_point"]}
+    if len(per_seed) > 1:
+        for arm in ("rl", "hybrid"):
+            for p in final[arm]:
+                p["band"] = {key: _band(p[key]) for key in ("ap50", "cost",
+                                                            "reward")}
+        final["paper_point"]["band_cost_saving_frac"] = _band(
+            final["paper_point"]["cost_saving_frac"])
+    print("[reference] final " + json.dumps(final))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", choices=["sac", "ppo"], default="sac")
@@ -116,8 +264,14 @@ def main() -> int:
                          "scenario (phase 8's protocol) instead of "
                          "--algo's training run")
     ap.add_argument("--horizon", type=int, default=None,
-                    help="--scenario: schedule length (default 1600)")
+                    help="--scenario: schedule length (default 1600); "
+                         "--frontier: 480")
+    ap.add_argument("--frontier", action="store_true",
+                    help="the cost-accuracy frontier's RL and hybrid arms "
+                         "per seed (phase 9 of chip_smoke.py)")
     args = ap.parse_args()
+    if args.frontier:
+        return run_frontier_seeds(args)
     if args.scenario:
         return run_scenario(args)
     args.images = args.images or IMAGES
