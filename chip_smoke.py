@@ -12,8 +12,9 @@ Phases, each fatal on failure (no result line is printed then):
   2. kernels — hold each kernel against its plain PyTorch version on the
                card: the IoU kernel with ``torch.equal`` (bit equality) on
                dense pairs and packed ragged batches (empty images, a
-               cross batch, a 1000 x 1000 image), flash attention and the
-               SSD scan within stated float32 tolerances, on crafted edge
+               cross batch, a 1000 x 1000 image), flash attention (head
+               dims 64-160, the served archs' (H, K) pairs) and the SSD
+               scan within stated float32 tolerances, on crafted edge
                cases and ragged shapes;
   3. serve   — Armol's federation service at real size: 5000 trace images
                (the COCO val2017 size the traces model), the N=3 roster of
@@ -133,7 +134,25 @@ Phases, each fatal on failure (no result line is printed then):
                CPU: a mask may differ only where a proto lies within 1e-5
                of 0.5), IoU launches in every worker; and the cascade
                under ``provider_outage`` on the thread plane, each result
-               equal to its segment on a CPU core (``[policy:*]`` lines).
+               equal to its segment on a CPU core (``[policy:*]`` lines);
+ 10. lm families — the dense, moe and ssm archs served through
+               ``ServeEngine.serve`` on the card one after another, each
+               freed before the next: olmoe-1b-7b at full width and depth
+               (16 flash launches a prefill), qwen1.5-0.5b and mamba2-370m
+               (48 SSD launches at N=128) in full, deepseek-v2-236b (MLA,
+               no flash), stablelm-12b (flash at hd 160), command-r-plus-104b
+               and qwen1.5-110b at full width, depth cut to fit one card;
+               8 requests of up to 1024 prompt tokens, 16 new tokens,
+               max_len 1040, random float32 weights; launches zeroed just
+               before and read just after, every step's logits finite
+               (``[lm:<arch>]`` lines: prefill ms, decode tok/s, launches,
+               card MiB, the cut); flash timed at olmoe's and stablelm's
+               shapes, SSD at mamba2's, olmoe's and mamba2's prefill and
+               decode step profiled; then one full-width layer per family
+               on the card against the CPU (olmoe's MoE block, deepseek's
+               MLA + MoE block, a mamba2 block, stablelm's hd-160 block),
+               router top-k compared first, a flip allowed only at a near
+               tie (``[lm-layer:<arch>]`` lines).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -169,6 +188,20 @@ LM_LOGIT_ATOL = 2e-4  # card vs CPU logits (|logits| up to ~4) after 7
                       # full-width blocks: cuBLAS and the CPU's BLAS sum K
                       # up to 10240 in other orders, and so do the kernels
                       # (1.7e-5 measured on an H100)
+LAYER_RTOL = LM_LOGIT_ATOL / 4  # card vs CPU of one full-width layer
+                                # (phase 10): 2e-4 up to outputs of ~4,
+                                # that share of the scale above; with the
+                                # reference's initialisers (expert weights
+                                # drawn with fan-in = the expert count) a
+                                # MoE layer's outputs reach ~100 (97-108
+                                # on an H100), and float32 rounding grows
+                                # with them
+ROUTER_TIE = 1e-5     # ceiling of the router's near-tie window (phase 10):
+                      # two of a token's top-(k+1) probabilities can swap
+                      # between card and CPU only where they lie within
+                      # twice the largest card-vs-CPU difference of the
+                      # router probabilities, measured in the run, which
+                      # must itself stay within ROUTER_TIE / 2
 LM_ARCH = "zamba2-2.7b"
 
 
@@ -628,7 +661,10 @@ def check_lm_kernels(dev) -> dict:
     for S in (1, 7, 33, 130, 1000):
         for causal, window in ((True, 0), (False, 0), (True, 8),
                                (True, 64)):
-            for H, K, hd in ((4, 4, 80), (8, 2, 64)):
+            # Zamba2 (80), small GQA (64), olmoe (16/16/128), command-r
+            # (96/8/128: groups of 12), stablelm (32/8/160)
+            for H, K, hd in ((4, 4, 80), (8, 2, 64), (16, 16, 128),
+                             (96, 8, 128), (32, 8, 160)):
                 err = flash_err(*rand_qkv(rng, 2, S, H, K, hd, dev),
                                 causal, window)
                 log(f"[kernels] flash_attention S={S} H={H} K={K} hd={hd} "
@@ -814,8 +850,11 @@ def lm_serve(dev) -> dict:
 def lm_breakdown(engine, reqs, dev) -> dict:
     """One prefill and one decode step of the served batch under
     ``torch.profiler``: device time by kernel group (the two LM kernels,
-    cuBLAS/CUTLASS GEMMs, everything else) and the device's busy and idle
-    share of the wall time.  Runs after the counted run."""
+    cuBLAS/CUTLASS GEMMs, everything else), the device time under the MoE
+    dispatch and combine einsums (``models/moe.py``'s profiler range; their
+    kernels are also counted in their group; a MoE model that shows none
+    fails), and the device's busy and idle share of the wall time.  Runs
+    after the counted run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -838,8 +877,20 @@ def lm_breakdown(engine, reqs, dev) -> dict:
         groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
                   "other": 0.0}
         n_kernels = 0
+        # the range shows as a CPU op (device time of the kernels under
+        # it) and, where the tracer records it, as a GPU annotation (its
+        # span on the device), which is no kernel: never in a group
+        moe_cpu_us = moe_gpu_us = 0.0
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            cuda = e.device_type == torch.autograd.DeviceType.CUDA
+            if e.key == "moe_dispatch_combine":
+                if cuda:
+                    moe_gpu_us += _device_us([e])
+                else:
+                    moe_cpu_us += getattr(e, "device_time_total",
+                                          getattr(e, "cuda_time_total", 0.0))
+                continue
+            if not cuda:
                 continue
             us = _device_us([e])
             n_kernels += e.count
@@ -852,11 +903,16 @@ def lm_breakdown(engine, reqs, dev) -> dict:
                 groups["gemm"] += us
             else:
                 groups["other"] += us
+        if engine.cfg.moe is not None and not (moe_gpu_us or moe_cpu_us):
+            raise AssertionError(f"{label}: the profiler shows no device "
+                                 f"time under moe_dispatch_combine")
         busy = sum(groups.values())
         out[label] = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
                       "device_idle_share": 1.0 - busy / 1e6 / wall
                       if busy > 0 else None, "kernels": n_kernels,
-                      **{f"{k}_ms": v / 1e3 for k, v in groups.items()}}
+                      **{f"{k}_ms": v / 1e3 for k, v in groups.items()},
+                      "moe_dispatch_combine_ms":
+                          (moe_gpu_us or moe_cpu_us) / 1e3}
     return out
 
 
@@ -893,12 +949,37 @@ def kernel_device_ms_of(fn, prefix: str, calls: int = 10,
             best_by)
 
 
+def flash_check_at_serving_shape(run: dict):
+    """The flash kernel on the inputs of the first attention call of the
+    served prefill, against its plain version at FLASH_ATOL: (the kernel's
+    output, max abs error)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+    q, k, v = run["flash_args"]
+    causal = run["flash_kwargs"].get("causal", True)
+    window = run["flash_kwargs"].get("window", 0)
+    want = flash_attention_torch(q, k, v, causal=causal, window=window)
+    got = ops._launch(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    del want
+    log(f"[lm] flash_attention at the serving shape {tuple(q.shape)} "
+        f"K={k.shape[2]} causal={causal} window={window}: "
+        f"max_abs_err={err:.3g}")
+    if not err <= FLASH_ATOL:
+        raise AssertionError(f"flash_attention off by {err} at the serving "
+                             f"shape {tuple(q.shape)} K={k.shape[2]}")
+    return got, err
+
+
 def flash_at_serving_shape(run: dict, dev) -> dict:
-    """The flash kernel on the inputs of the first shared-attention call of
-    the served prefill: against its plain version, then timed beside it and
-    beside ``scaled_dot_product_attention`` (a yardstick the port never
-    calls).  The bound counts the visible (query, key) pairs of this mask,
-    4*hd flops each (q.k and p.v), and q, k, v read and out written once."""
+    """``flash_check_at_serving_shape``, then the kernel timed beside its
+    plain version and beside ``scaled_dot_product_attention`` (a yardstick
+    the port never calls; ``enable_gqa`` where K < H).  The bound counts the
+    visible (query, key) pairs of this mask, 4*hd flops each (q.k and p.v),
+    and q, k, v read and out written once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -909,16 +990,7 @@ def flash_at_serving_shape(run: dict, dev) -> dict:
     window = run["flash_kwargs"].get("window", 0)
     B, S, H, hd = q.shape
     K = k.shape[2]
-    want = flash_attention_torch(q, k, v, causal=causal, window=window)
-    got = ops._launch(q, k, v, causal, window)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    del want
-    log(f"[lm] flash_attention at the serving shape {(B, S, H, hd)} K={K} "
-        f"causal={causal} window={window}: max_abs_err={err:.3g}")
-    if not err <= FLASH_ATOL:
-        raise AssertionError(f"flash_attention off by {err} at the serving "
-                             f"shape")
+    got, err = flash_check_at_serving_shape(run)
     lib = ops._library()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -931,9 +1003,11 @@ def flash_at_serving_shape(run: dict, dev) -> dict:
         q, k, v, causal=causal, window=window), reps=5, inner=2, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib_ms = None
-    if K == H and not window:
+    if not window:
+        gqa = {} if K == H else {"enable_gqa": True}
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal), reps=10, inner=10, warmup=3)
+            qt, kt, vt, is_causal=causal, **gqa), reps=10, inner=10,
+            warmup=3)
     device_ms, per_call, _ = kernel_device_ms_of(kernel, "flash_attention_")
     i = torch.arange(S, device=dev)[:, None]
     j = torch.arange(S, device=dev)[None, :]
@@ -1101,6 +1175,245 @@ def lm_vs_cpu(dev) -> dict:
         f"min top-2 margin {min(float(m.min()) for m in margins):.3g}; "
         f"{time.perf_counter() - t0:.1f}s")
     return {"max_abs_err": err}
+
+# ---------------------------------------------------------------------------
+# phase 10: the dense, moe and ssm families served at full width
+# ---------------------------------------------------------------------------
+
+# Depth cut where the full model does not fit one card in float32 (None:
+# full depth).  The weights after the cut: olmoe 27.7 GB, qwen0.5b 1.9 GB,
+# mamba2 1.5 GB, deepseek 37.3 GB (the dense layer and 2 MoE layers),
+# stablelm 8.6 GB, command-r 25.2 GB, qwen110b 20.8 GB.
+LM_FAMILIES = {"olmoe-1b-7b": None, "qwen1.5-0.5b": None,
+               "mamba2-370m": None, "deepseek-v2-236b": 3,
+               "stablelm-12b": 4, "command-r-plus-104b": 2,
+               "qwen1.5-110b": 2}
+
+
+def family_config(arch: str):
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    full = get_arch(arch)
+    layers = LM_FAMILIES[arch]
+    if layers is None:
+        return full, {}
+    return (dataclasses.replace(full, num_layers=layers),
+            {"depth": f"{full.num_layers} -> {layers} layers"})
+
+
+def serve_family(arch: str, dev) -> dict:
+    """One arch through ``ServeEngine.serve``: 8 requests of up to 1024
+    prompt tokens (left-padded to 1024, four SSD chunks for mamba2), 16
+    new tokens, max_len 1040, after a warm-up serve of 2 new tokens.
+    Launch counters zeroed just before, read just after; every step's
+    logits finite; the model freed by the caller."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg, reduced = family_config(arch)
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, max_len=1040, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    reqs = lm_requests(cfg, 8, 1024, 16, seed=0)
+    engine.serve(lm_requests(cfg, 8, 1024, 2, seed=1))   # warm-up
+    finite = []
+    sample = engine._sample
+
+    def checked(logits, temps, gen):
+        finite.append(bool(torch.isfinite(logits).all()))
+        return sample(logits, temps, gen)
+    engine._sample = checked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Capture(fa, "flash_attention") as cap_fa, \
+            Capture(sd, "ssd_scan") as cap_sd:
+        fa.reset_launches()
+        sd.reset_launches()
+        outs = engine.serve(reqs, seed=0)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fa.LAUNCHES, "ssd_scan": sd.LAUNCHES}
+    engine._sample = sample
+    st = dict(engine.last_stats)
+    attn = cfg.family != "ssm" and cfg.mla is None
+    want = {"flash_attention": cfg.num_layers if attn else 0,
+            "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0}
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, expected {want} "
+                             f"for one prefill")
+    toks = np.stack([o.tokens for o in outs])
+    if not all(finite) or len(finite) != 16 or toks.shape != (8, 16) or \
+            toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: finite logits {finite}, tokens "
+                             f"{toks.shape} [{toks.min()}, {toks.max()}]")
+    B, S = st["batch"], st["prompt_len"]
+    out = {"arch": arch, "params": n_params,
+           "param_count": cfg.param_count(), "build_s": build_s,
+           "prompt_len": S, "prefill_ms": st["prefill_s"] * 1e3,
+           "decode_tok_s": st["decode_steps"] * B / st["decode_s"],
+           "launches_per_prefill": launches,
+           "card_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+           "reduced": reduced or "none (full depth)",
+           "tokens_req0": toks[0].tolist()}
+    log(f"[lm:{arch}] {json.dumps(out)}")
+    out.update(engine=engine, reqs=reqs, flash_args=cap_fa.args,
+               flash_kwargs=cap_fa.kwargs, ssd_args=cap_sd.args,
+               ssd_kwargs=cap_sd.kwargs)
+    return out
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def _moe_routing(p, h, mo):
+    """The router's probabilities, top-k ids and kept flags of ``apply_moe``
+    on ``h`` (B, S, d), per group."""
+    import torch
+    from repro_torch.models import moe
+    T = h.shape[0] * h.shape[1]
+    gs = moe._group_size(T)
+    probs = torch.softmax(h.reshape(T // gs, gs, -1) @ p["router"], dim=-1)
+    _, idx, _, keep = moe.route(probs, mo.top_k, moe.capacity(gs, mo))
+    return probs, idx, keep
+
+
+def layer_vs_cpu(arch: str, dev) -> dict:
+    """One full-width layer of ``arch`` on the card and on the CPU, same
+    weights (drawn on the card, copied), 2 x 256 tokens.  Mamba2: norm +
+    Mamba block (SSD kernel at N=128); stablelm: the hd-160 attention +
+    MLP block (flash kernel); olmoe and deepseek: attention (GQA with
+    qk-norm; MLA) + MoE.  For a MoE block the router's top-k ids are
+    compared first: a token may take other experts only where two of its
+    top-(k+1) router probabilities lie within twice the largest card-vs-CPU
+    difference of the probabilities (at most ROUTER_TIE) of each other (and
+    a token of its group may then keep or lose a capacity slot); every
+    other token is held to the tolerance."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.layers import ParamTree, apply_norm, init_norm
+    from repro_torch.models.model import _block_forward, _init_block
+
+    cfg, _ = family_config(arch)
+    if cfg.moe is not None:          # one MoE layer (deepseek's 1st is dense)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=0))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    if cfg.family == "ssm":
+        tree = {"norm": init_norm(cfg.d_model, cfg.norm, dev),
+                "mamba": ssm_lib.init_mamba_block(cfg, gen, dev)}
+
+        def fwd(p, x, pos):
+            h = apply_norm(p["norm"], x, cfg.norm)
+            return x + ssm_lib.mamba_forward(p["mamba"], h, cfg)
+    else:
+        tree = _init_block(cfg, gen, dev, layer_is_moe=cfg.moe is not None)
+
+        def fwd(p, x, pos):
+            return _block_forward(p, x, pos, cfg)[0]
+    gpu, cpu = ParamTree(tree), ParamTree(_cpu_tree(tree))
+    del tree
+    B, S = 2, 256
+    x = torch.randn((B, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(8))
+    pos = torch.arange(S)[None].expand(B, S)
+    with Capture(moe_lib, "apply_moe") as cap_g:
+        yg = fwd(gpu, x.to(dev), pos.to(dev)).cpu()
+    with Capture(moe_lib, "apply_moe") as cap_c:
+        yc = fwd(cpu, x, pos)
+    held = torch.ones((B, S), dtype=torch.bool)
+    out = {"arch": arch, "tokens": B * S}
+    if cfg.moe is not None:
+        pg, ig, kg = (t.cpu() for t in _moe_routing(
+            gpu["moe"], cap_g.args[1], cfg.moe))
+        pc, ic, kc = _moe_routing(cpu["moe"], cap_c.args[1], cfg.moe)
+        drift = float((pg - pc).abs().max())
+        if not drift <= ROUTER_TIE / 2:
+            raise AssertionError(f"{arch}: router probabilities differ by "
+                                 f"{drift} between card and CPU")
+        top = torch.topk(pc, cfg.moe.top_k + 1, dim=-1).values
+        near = ((top[..., :-1] - top[..., 1:]) <= 2 * drift).any(-1)
+        flipped = (ig != ic).any(-1)
+        if (flipped & ~near).any():
+            raise AssertionError(f"{arch}: router top-k differs on the card "
+                                 f"away from a near tie")
+        slot = (kg != kc).any(-1) & ~flipped
+        if (slot & ~flipped.any(-1, keepdim=True)).any():
+            raise AssertionError(f"{arch}: capacity slots differ in a group "
+                                 f"with no routing flip")
+        held = ~(flipped | slot).reshape(B, S)
+        out.update(router_prob_max_abs_diff=drift, tie_window=2 * drift,
+                   near_ties=int(near.sum()), flipped=int(flipped.sum()),
+                   slot_changes=int(slot.sum()))
+    diff = (yg - yc).abs()[held]
+    scale = float(yc.abs().max())
+    tol = max(LM_LOGIT_ATOL, LAYER_RTOL * scale)
+    out.update(max_abs_err=float(diff.max()), max_abs_out=scale,
+               tolerance=tol, held_tokens=int(held.sum()),
+               seconds=time.perf_counter() - t0)
+    log(f"[lm-layer:{arch}] card vs CPU: {json.dumps(out)}")
+    if not (torch.isfinite(yg).all() and out["max_abs_err"] <= tol):
+        raise AssertionError(f"{arch}: card and CPU layer differ by "
+                             f"{out['max_abs_err']} (> {tol})")
+    return out
+
+
+def families_phase(dev) -> dict:
+    """Phase 10: each family's archs served on the card one after another
+    (each freed before the next), the kernels timed at olmoe's and
+    stablelm's flash shapes and mamba2's SSD shape, olmoe's and mamba2's
+    prefill and decode step under the profiler; then one full-width layer
+    per family against the CPU."""
+    import gc
+    import torch
+    t_phase = time.perf_counter()
+    runs, timed, breakdown, flash_errs = {}, {}, {}, {}
+    for arch in LM_FAMILIES:
+        run = serve_family(arch, dev)
+        if arch in ("olmoe-1b-7b", "mamba2-370m"):
+            breakdown[arch] = lm_breakdown(run["engine"], run["reqs"], dev)
+            log(f"[breakdown:lm:{arch}] {json.dumps(breakdown[arch])}")
+        if arch in ("olmoe-1b-7b", "stablelm-12b"):
+            timed[arch] = flash_at_serving_shape(run, dev)
+            flash_errs[arch] = timed[arch]["serving_max_abs_err"]
+        elif run["launches_per_prefill"]["flash_attention"]:
+            flash_errs[arch] = flash_check_at_serving_shape(run)[1]
+        if arch == "mamba2-370m":
+            timed[arch] = ssd_at_serving_shape(run, dev)
+        if arch in timed:
+            t = timed[arch]
+            log(f"[kernels] {'ssd_scan' if arch == 'mamba2-370m' else 'flash_attention'}"
+                f" at {arch}'s serving shape {t['timed_shape']}: kernel "
+                f"{t['ms']:.4f} ms (device {t['device_ms']} ms), plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                f"{t['mma_flops']} 3xTF32 + {t['flops'] - t['mma_flops']} "
+                f"other flops, {t['bytes']} bytes)")
+        runs[arch] = {k: v for k, v in run.items() if k not in (
+            "engine", "reqs", "flash_args", "flash_kwargs", "ssd_args",
+            "ssd_kwargs")}
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    layers = {arch: layer_vs_cpu(arch, dev) for arch in (
+        "olmoe-1b-7b", "deepseek-v2-236b", "mamba2-370m", "stablelm-12b")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: {arch: r["launches_per_prefill"][k]
+                    for arch, r in runs.items()}
+                for k in ("flash_attention", "ssd_scan")}
+    log(f"[lm] phase 10 in {time.perf_counter() - t_phase:.1f}s")
+    return {"runs": runs, "timed": timed, "breakdown": breakdown,
+            "layers": layers, "launches": launches, "flash_errs": flash_errs}
 
 # ---------------------------------------------------------------------------
 # phase 6: training Armol's selector
@@ -3297,6 +3610,11 @@ def main() -> int:
                             worlds["provider_outage"], dev)
     log(f"[frontier] phase 9 in {time.perf_counter() - t0:.1f}s")
 
+    # 10. the dense, moe and ssm families served at full width, one full
+    # layer of each against the CPU
+    torch.cuda.empty_cache()
+    fam = families_phase(dev)
+
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
             or m.startswith("repro.")]
@@ -3356,8 +3674,14 @@ def main() -> int:
                          "src/repro/kernels/flash_attention/kernel.py:30",
                          "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:24"
                          }[name],
-            "launches": lm["launches"][name],
-            "max_abs_err": max(err, t["serving_max_abs_err"]),
+            "launches": lm["launches"][name]
+            + sum(fam["launches"][name].values()),
+            "launches_by_arch": {LM_ARCH: lm["launches"][name],
+                                 **fam["launches"][name]},
+            "max_abs_err": max([err, t["serving_max_abs_err"]] + (
+                list(fam["flash_errs"].values())
+                if name == "flash_attention" else
+                [fam["timed"]["mamba2-370m"]["serving_max_abs_err"]])),
             "tolerance": (f"abs {FLASH_ATOL}" if name == "flash_attention"
                           else f"{SSD_RTOL} of max |plain|"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3369,6 +3693,14 @@ def main() -> int:
         })
         if "device_ms_by_kernel" in t:
             kernels[-1]["device_ms_by_kernel"] = t["device_ms_by_kernel"]
+        if name == "flash_attention":
+            kernels[-1]["serving_max_abs_err_by_arch"] = fam["flash_errs"]
+        kernels[-1]["timed_by_arch"] = {
+            a: {k: ft[k] for k in ("timed_shape", "ms", "device_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")}
+            for a, ft in fam["timed"].items()
+            if (a == "mamba2-370m") == (name == "ssd_scan")}
     log(f"[lm] summary: {json.dumps({k: v for k, v in lm.items() if k not in ('flash_kwargs', 'ssd_kwargs')})} "
         f"card-vs-cpu logits max_abs_err {cmp['max_abs_err']:.3g}")
     print(json.dumps({"kernels": kernels}))

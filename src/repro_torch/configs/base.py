@@ -202,8 +202,11 @@ ARCH_IDS = [
     "seamless-m4t-medium",
 ]
 
-# the architectures whose model family the port runs
-PORTED = ("zamba2-2.7b",)
+# the architectures whose model family the port runs (vlm and audio are
+# not ported yet)
+PORTED = ("command-r-plus-104b", "olmoe-1b-7b", "qwen1.5-110b",
+          "stablelm-12b", "deepseek-v2-236b", "mamba2-370m", "qwen1.5-0.5b",
+          "zamba2-2.7b")
 
 
 def get_arch(arch_id: str) -> ArchConfig:

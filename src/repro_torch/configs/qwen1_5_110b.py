@@ -1,0 +1,24 @@
+"""Qwen1.5-110B — dense GQA with QKV bias.
+
+[hf:Qwen/Qwen1.5-0.5B family scaling]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-110b",
+    family="dense",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=49152,
+    vocab_size=152064,
+    qkv_bias=True,
+    norm="rmsnorm",
+    act="silu",
+    rope_theta=1_000_000.0,
+    long_context="sliding_window",
+    sliding_window=8192,
+    source="hf:Qwen/Qwen1.5-0.5B",
+)

@@ -168,25 +168,43 @@ def _load_tree(tree: ParamTree, params: Mapping, index: tuple, path: str
             sub.copy_(torch.from_numpy(np.array(arr[index])))
 
 
+def _lead(tree: Mapping, n: int) -> tuple:
+    """The first ``n`` (stack) axes of a stacked pytree's first leaf."""
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return tuple(np.shape(tree)[:n])
+
+
 def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
                        model: Optional[Model] = None) -> Model:
     """Reference LM pytree (numpy leaves) -> the port's ``Model``.
 
-    Hybrid family: ``blocks`` leaves carry leading axes ``(n_super, per)``
-    and become ``model.blocks[s * per + i]``; ``shared_attn`` is one block.
-    Loads into ``model`` in place when given (its device is kept), else
-    builds a CPU model.  Raises on any key or shape that does not fit.
+    Dense/moe: ``dense_blocks`` and ``blocks`` leaves carry a leading
+    layer axis and become ``model.dense_blocks[i]`` / ``model.blocks[i]``
+    (MoE weights keep their ``(E, fan_in, fan_out)`` layout); ssm:
+    ``blocks`` likewise.  Hybrid: ``blocks`` leaves carry leading axes
+    ``(n_super, per)`` and become ``model.blocks[s * per + i]``;
+    ``shared_attn`` is one block.  ``unembed`` is absent with tied
+    embeddings.  Loads into ``model`` in place when given (its device is
+    kept), else builds a CPU model.  Raises on any key or shape that does
+    not fit.
     """
     if model is None:
         model = Model(cfg, device="cpu", init=False)
     if model.cfg != cfg:
         raise ValueError(f"model was built for {model.cfg.name}, not "
                          f"{cfg.name}")
-    want = {"embed", "final_norm", "unembed", "blocks", "shared_attn"}
+    want = {"embed", "final_norm", "blocks"}
+    if not cfg.tie_embeddings:
+        want.add("unembed")
+    if cfg.family == "hybrid":
+        want.add("shared_attn")
+    elif getattr(model, "dense_blocks", None):
+        want.add("dense_blocks")
     if set(params.keys()) != want:
         raise ValueError(f"params keys {sorted(params.keys())} do not fit "
-                         f"the hybrid family's {sorted(want)}")
-    for name in ("embed", "unembed"):
+                         f"the {cfg.family} family's {sorted(want)}")
+    for name in sorted({"embed", "unembed"} & want):
         arr = np.asarray(params[name])
         dst = getattr(model, name)
         if arr.shape != tuple(dst.shape):
@@ -195,13 +213,24 @@ def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
         with torch.no_grad():
             dst.copy_(torch.from_numpy(np.array(arr)))
     _load_tree(model.final_norm, params["final_norm"], (), "final_norm")
-    _load_tree(model.shared_attn, params["shared_attn"], (), "shared_attn")
-    lead = np.shape(params["blocks"]["norm"]["scale"])[:2]
-    if tuple(lead) != (model.n_super, model.per):
-        raise ValueError(f"blocks are stacked {tuple(lead)}, the model has "
-                         f"({model.n_super}, {model.per})")
-    for s in range(model.n_super):
-        for i in range(model.per):
-            _load_tree(model.blocks[s * model.per + i], params["blocks"],
-                       (s, i), f"blocks[{s},{i}]")
+    if cfg.family == "hybrid":
+        _load_tree(model.shared_attn, params["shared_attn"], (),
+                   "shared_attn")
+        lead = _lead(params["blocks"], 2)
+        if lead != (model.n_super, model.per):
+            raise ValueError(f"blocks are stacked {lead}, the model has "
+                             f"({model.n_super}, {model.per})")
+        for s in range(model.n_super):
+            for i in range(model.per):
+                _load_tree(model.blocks[s * model.per + i], params["blocks"],
+                           (s, i), f"blocks[{s},{i}]")
+        return model
+    for key in sorted(want & {"blocks", "dense_blocks"}):
+        stack = getattr(model, key)
+        lead = _lead(params[key], 1)
+        if lead != (len(stack),):
+            raise ValueError(f"{key} are stacked {lead}, the model has "
+                             f"({len(stack)},)")
+        for i, block in enumerate(stack):
+            _load_tree(block, params[key], (i,), f"{key}[{i}]")
     return model

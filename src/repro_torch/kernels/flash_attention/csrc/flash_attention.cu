@@ -296,7 +296,8 @@ int launch(const float* q, const float* k, const float* v, float* out,
 }  // namespace
 
 // q, out: (B, S, H, hd); k, v: (B, S, K, hd); float32, contiguous, 16-byte
-// aligned, on the current device; H % K == 0; hd one of 16, 32, ..., 128.
+// aligned, on the current device; H % K == 0; hd one of 16, 32, ..., 128
+// or 160.
 // Launches on `stream` without synchronising and returns cudaGetLastError()
 // (0 = ok; cudaErrorInvalidValue for a shape the kernel does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -323,6 +324,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return launch<112>(qf, kf, vf, of, B, S, H, K, causal, window, s);
     case 128:
       return launch<128>(qf, kf, vf, of, B, S, H, K, causal, window, s);
+    case 160:  // StableLM-2-12B; 171,008 bytes of shared memory a block
+      return launch<160>(qf, kf, vf, of, B, S, H, K, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

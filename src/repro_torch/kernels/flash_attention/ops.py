@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # head dims the kernel is instantiated for (csrc/flash_attention.cu)
-KERNEL_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+KERNEL_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 160)
 
 LAUNCHES = 0
 _LIB = None

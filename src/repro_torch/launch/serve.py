@@ -15,10 +15,14 @@ repro_torch.launch.shard_host``; without ``--hosts`` it spawns
 ``--workers`` local hosts.
 
 ``--arch <id>`` serves an LM through ``ServeEngine`` (prefill through the
-flash-attention and SSD kernels, then greedy or temperature decode),
-reduced unless ``--full``.  The longest prompt is exactly
-``--prompt-len`` tokens (the others are drawn shorter and left-padded),
-so that length must be at most the SSM chunk or a multiple of it.
+flash-attention kernel for GQA and the SSD kernel for Mamba-2, then greedy
+or temperature decode), reduced unless ``--full``: the dense
+(``qwen1.5-0.5b``, ``qwen1.5-110b``, ``stablelm-12b``,
+``command-r-plus-104b``), moe (``olmoe-1b-7b``, ``deepseek-v2-236b``),
+ssm (``mamba2-370m``) and hybrid (``zamba2-2.7b``) archs.  The longest
+prompt is exactly ``--prompt-len`` tokens (the others are drawn shorter
+and left-padded); for the ssm and hybrid archs that length must be at
+most the SSM chunk or a multiple of it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --federation \\
         --images 5000 --requests 4096
@@ -198,10 +202,13 @@ def run_lm(args) -> int:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    L, chunk = args.prompt_len, cfg.ssm.chunk
-    if L < 1 or (L > chunk and L % chunk):
+    L = args.prompt_len
+    if L < 1:
+        raise SystemExit(f"--prompt-len {L} must be at least 1")
+    if cfg.ssm is not None and L > cfg.ssm.chunk and L % cfg.ssm.chunk:
+        # the SSD scan takes a prompt of at most one chunk or of whole ones
         raise SystemExit(f"--prompt-len {L} must be at most the SSM chunk "
-                         f"({chunk}) or a multiple of it")
+                         f"({cfg.ssm.chunk}) or a multiple of it")
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, max_len=args.max_len, seed=args.seed,
                          device=args.device)

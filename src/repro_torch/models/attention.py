@@ -1,30 +1,36 @@
-"""GQA attention: full-sequence (prefill) and one-token decode against a full
-or ring-buffer KV cache.
+"""Attention: GQA (full / sliding-window prefill, one-token decode against a
+full or ring-buffer KV cache) and MLA (DeepSeek-V2's latent-compressed KV).
 
 Conventions (the reference's ``models/attention.py``):
 activations  x: (B, S, d_model)
 q            : (B, S, H, hd)
 kv cache     : k/v (B, S_cache, K, hd); keys stored *already RoPE'd*.
+MLA cache    : latent (B, S_cache, kv_lora) + k_rope (B, S_cache, rope_dim).
 Decode steps take a Python int ``pos`` (same position across the batch:
 static batching).
 
-Full-sequence attention goes through the flash-attention kernel
+GQA's full-sequence attention goes through the flash-attention kernel
 (``kernels.flash_attention.ops``); the one-token decode stays plain
-PyTorch (``sdpa`` over the cache), as in the reference.  Cross-attention
-and MLA are not ported yet.
+PyTorch (``sdpa`` over the cache), as in the reference.  MLA is plain
+PyTorch in both: its prefill is the reference's own einsum (q.k over 192
+dims, v of 128, which the flash kernel does not take), its decode the
+weight-absorbed form.  Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import sdpa
 from repro_torch.models.layers import (F32, apply_norm, apply_rope,
                                        dense_init, init_norm)
+
+NEG_INF = -1e30
 
 
 @dataclass(frozen=True)
@@ -125,3 +131,107 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     out = sdpa(q, cache_k, cache_v, mask)
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent-compressed KV; decode uses weight absorption
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ArchConfig, gen: Optional[torch.Generator], dev) -> Dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init((d, m.q_lora_rank), gen, dev),
+        "q_norm": init_norm(m.q_lora_rank, "rmsnorm", dev),
+        "wq_b": dense_init((m.q_lora_rank, H * qk), gen, dev),
+        "wkv_a": dense_init((d, m.kv_lora_rank + m.qk_rope_head_dim), gen,
+                            dev),
+        "kv_norm": init_norm(m.kv_lora_rank, "rmsnorm", dev),
+        # stored per-head for decode-side absorption
+        "wk_b": dense_init((m.kv_lora_rank, H * m.qk_nope_head_dim), gen,
+                           dev),
+        "wv_b": dense_init((m.kv_lora_rank, H * m.v_head_dim), gen, dev),
+        "wo": dense_init((H * m.v_head_dim, d), gen, dev),
+    }
+
+
+def _mla_q(p, x: torch.Tensor, m: MLAConfig, H: int, positions):
+    B, S, _ = x.shape
+    cq = apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm")
+    q = (cq @ p["wq_b"]).reshape(B, S, H,
+                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, 10000.0)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x: torch.Tensor, m: MLAConfig, positions):
+    ckv = x @ p["wkv_a"]
+    latent = apply_norm(p["kv_norm"], ckv[..., :m.kv_lora_rank], "rmsnorm")
+    k_rope = ckv[..., None, m.kv_lora_rank:]            # (B,S,1,rope)
+    k_rope = apply_rope(k_rope, positions, 10000.0)[..., 0, :]
+    return latent, k_rope
+
+
+def _mla_scale(m: MLAConfig) -> float:
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig, *, causal: bool = True,
+                return_cache: bool = False):
+    """Full-sequence MLA (prefill).  The reference pins the scores to a
+    (data, model) mesh layout (``_score_constraint``), a no-op without a
+    JAX mesh, left out here.  The (B, H, S, S) scores are summed, scaled
+    and masked in place (one buffer fewer at full width)."""
+    m, H = cfg.mla, cfg.num_heads
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, m, H, positions)
+    latent, k_rope = _mla_latent(p, x, m, positions)
+    k_nope = (latent @ p["wk_b"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (latent @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    scores = torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+    scores += torch.einsum("bshr,btr->bhst", q_rope, k_rope)
+    scores *= _mla_scale(m)
+    if causal:
+        i = torch.arange(S, device=x.device)
+        scores.masked_fill_(i[None, :] > i[:, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    del scores
+    out = torch.einsum("bhst,bthv->bshv", w, v).reshape(B, S, -1)
+    y = out @ p["wo"]
+    if return_cache:
+        return y, (latent, k_rope)
+    return y
+
+
+def mla_decode(p, x: torch.Tensor, pos: int, cache_latent: torch.Tensor,
+               cache_krope: torch.Tensor, cfg: ArchConfig):
+    """Absorbed decode: scores in latent space against the cache
+    (B,W,kv_lora) + (B,W,rope).  The new latent and rope key are written
+    at ``pos`` in place, and the same tensors are returned."""
+    m, H = cfg.mla, cfg.num_heads
+    B = x.shape[0]
+    W = cache_latent.shape[1]
+    if pos >= W:
+        raise ValueError(f"decode position {pos} is past the cache ({W})")
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, m, H, positions)       # (B,1,H,.)
+    latent, k_rope = _mla_latent(p, x, m, positions)     # (B,1,kv_lora),...
+    cache_latent[:, pos] = latent[:, 0]
+    cache_krope[:, pos] = k_rope[:, 0]
+    # absorb wk_b into the query:  q_lat[h] = q_nope[h] @ wk_b[:, h, :].T
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshn,lhn->bshl", q_nope, wk_b)  # (B,1,H,kv_lora)
+    scores = (torch.einsum("bshl,btl->bhst", q_lat, cache_latent)
+              + torch.einsum("bshr,btr->bhst", q_rope, cache_krope))
+    scores = scores * _mla_scale(m)
+    valid = torch.arange(W, device=x.device) <= pos
+    scores = scores.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhst,btl->bshl", w, cache_latent)
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bshl,lhv->bshv", ctx_lat, wv_b).reshape(B, 1, -1)
+    y = out @ p["wo"]
+    return y, (cache_latent, cache_krope)

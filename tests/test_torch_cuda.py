@@ -145,7 +145,8 @@ def qkv(rng, B, S, H, K, hd, dev):
     return t(B, S, H, hd), t(B, S, K, hd), t(B, S, K, hd)
 
 
-FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # ops.KERNEL_HEAD_DIMS
+FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128,
+                   160)  # ops.KERNEL_HEAD_DIMS
 
 
 def flash_case(dev, S, H, K, hd, causal, window, seed):
@@ -357,6 +358,90 @@ def test_reduced_zamba2_on_the_card_matches_the_cpu(dev):
         lg, cg = gpu.decode_step(cg, cur)
         lc, cc = cpu.decode_step(cc, cur)
         assert float((lg.cpu() - lc).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "stablelm-12b",
+                                  "command-r-plus-104b", "mamba2-370m"])
+def test_reduced_dense_and_ssm_archs_on_the_card_match_the_cpu(dev, arch):
+    """Prefill of 64 tokens at max_len 100 (the dense archs' ring of 64
+    slots, flash with the window; mamba2 two SSD chunks) and six greedy
+    decode steps through the ring, card against CPU from the same
+    weights."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    cfg = get_arch(arch).reduced()
+    gpu = Model(cfg, device=dev, seed=3)
+    cpu = Model(cfg, device="cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 64)))
+    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    lg, cg = gpu.prefill({"tokens": toks}, 100)
+    ssm = cfg.family == "ssm"
+    assert (fa.LAUNCHES - f0, sd.LAUNCHES - s0) == \
+        ((0, 2) if ssm else (2, 0))
+    lc, cc = cpu.prefill({"tokens": toks}, 100)
+    assert float((lg.cpu() - lc).abs().max()) < 1e-4
+    for _ in range(6):
+        cur = lc.argmax(-1)[:, None]
+        lg, cg = gpu.decode_step(cg, cur)
+        lc, cc = cpu.decode_step(cc, cur)
+        assert float((lg.cpu() - lc).abs().max()) < 1e-4
+    for key in sorted(set(cc) - {"pos"}):
+        assert float((cg[key].cpu() - cc[key]).abs().max()) < 1e-4, key
+    if not ssm:
+        assert cc["k"].shape[2] == 64
+
+
+def test_one_moe_layer_on_the_card_matches_the_cpu(dev):
+    """olmoe's MoE (64 experts of 1024, top-8) at d_model 2048 over 2 x
+    256 tokens.  The router's probabilities agree within 5e-6, and its
+    top-k may differ only where two of a token's top-9 probabilities lie
+    within twice their largest difference; other tokens' outputs
+    (magnitude ~100 with the reference's init) within 5e-5 of the
+    output's scale (2e-4 on a scale of 4, as the LM's card tests)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    cfg = get_arch("olmoe-1b-7b")
+    mo = cfg.moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    pg = moe.init_moe(cfg.d_model, mo, gen, dev)
+    pc = {k: v.cpu() for k, v in pg.items()}
+    x = torch.randn((2, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    yg, ag = moe.apply_moe(pg, x.to(dev), mo, cfg.act)
+    yc, ac = moe.apply_moe(pc, x, mo, cfg.act)
+    gs = moe._group_size(512)
+    C = moe.capacity(gs, mo)
+    routes = []
+    for p, xx in ((pg, x.to(dev)), (pc, x)):
+        probs = torch.softmax(xx.reshape(-1, gs, cfg.d_model) @ p["router"],
+                              dim=-1)
+        routes.append([t.cpu() for t in (probs,) + moe.route(probs,
+                                                             mo.top_k, C)])
+    (probs_g, _, ig, _, kg), (probs, _, ic, _, kc) = routes
+    drift = float((probs_g - probs).abs().max())
+    assert drift <= 5e-6
+    top = torch.topk(probs, mo.top_k + 1, dim=-1).values
+    near = ((top[..., :-1] - top[..., 1:]) <= 2 * drift).any(-1)
+    flipped = (ig != ic).any(-1)
+    assert not (flipped & ~near).any()
+    slot = (kg != kc).any(-1) & ~flipped
+    assert not (slot & ~flipped.any(-1, keepdim=True)).any()
+    held = ~(flipped | slot).reshape(2, 256)
+    yg = yg.cpu()
+    assert torch.isfinite(yg).all()
+    tol = max(2e-4, 5e-5 * float(yc.abs().max()))
+    assert float((yg - yc).abs()[held].max()) <= tol
+    if not flipped.any():
+        assert abs(float(ag) - float(ac)) < 1e-6
 
 
 # ---------------------------------------------------------------------------

@@ -325,3 +325,26 @@ def test_lm_serve_cli_raises_without_gpu_and_runs_on_cpu():
                                       "cpu"], env=env, capture_output=True,
                          text=True, timeout=120)
     assert bad.returncode != 0 and "multiple" in bad.stderr
+
+
+def test_lm_serve_cli_serves_a_dense_arch_and_refuses_unported_ones():
+    """``--arch qwen1.5-0.5b`` (dense, tied embeddings, no SSM: any prompt
+    length) runs on the CPU when asked and raises without a GPU;
+    ``seamless-m4t-medium`` (audio) is not ported."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen1.5-0.5b", "--requests", "3", "--prompt-len", "40",
+            "--new-tokens", "4", "--max-len", "64"]
+    gpu = subprocess.run(base, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert gpu.returncode != 0
+    assert "no CUDA device" in gpu.stderr
+    cpu = subprocess.run(base + ["--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert cpu.returncode == 0, cpu.stderr
+    assert "qwen1.5-0.5b (reduced" in cpu.stdout and "12 tokens" in cpu.stdout
+    audio = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "seamless-m4t-medium", "--device", "cpu"], env=env,
+        capture_output=True, text=True, timeout=120)
+    assert audio.returncode != 0 and "not ported yet" in audio.stderr

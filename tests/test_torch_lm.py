@@ -85,11 +85,11 @@ def test_config_copy_matches_the_reference():
         assert jc.param_count() == pc.param_count()
     assert get_arch(ARCH).param_count() == 2_422_347_200      # 2.42 B
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("qwen1.5-0.5b")
+        get_arch("llama-3.2-vision-11b")
     with pytest.raises(KeyError):
         get_arch("gpt-5")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(dataclasses.replace(get_arch(ARCH).reduced(), family="dense"),
+        Model(dataclasses.replace(get_arch(ARCH).reduced(), family="vlm"),
               device="cpu")
 
 
