@@ -135,24 +135,33 @@ Phases, each fatal on failure (no result line is printed then):
                of 0.5), IoU launches in every worker; and the cascade
                under ``provider_outage`` on the thread plane, each result
                equal to its segment on a CPU core (``[policy:*]`` lines);
- 10. lm families — the dense, moe and ssm archs served through
-               ``ServeEngine.serve`` on the card one after another, each
-               freed before the next: olmoe-1b-7b at full width and depth
-               (16 flash launches a prefill), qwen1.5-0.5b and mamba2-370m
-               (48 SSD launches at N=128) in full, deepseek-v2-236b (MLA,
-               no flash), stablelm-12b (flash at hd 160), command-r-plus-104b
-               and qwen1.5-110b at full width, depth cut to fit one card;
-               8 requests of up to 1024 prompt tokens, 16 new tokens,
-               max_len 1040, random float32 weights; launches zeroed just
-               before and read just after, every step's logits finite
-               (``[lm:<arch>]`` lines: prefill ms, decode tok/s, launches,
-               card MiB, the cut); flash timed at olmoe's and stablelm's
-               shapes, SSD at mamba2's, olmoe's and mamba2's prefill and
-               decode step profiled; then one full-width layer per family
-               on the card against the CPU (olmoe's MoE block, deepseek's
-               MLA + MoE block, a mamba2 block, stablelm's hd-160 block),
-               router top-k compared first, a flip allowed only at a near
-               tie (``[lm-layer:<arch>]`` lines).
+ 10. lm families — the dense, moe, ssm, vlm and audio archs served
+               through ``ServeEngine.serve`` on the card one after another,
+               each freed before the next: olmoe-1b-7b at full width and
+               depth (16 flash launches a prefill), qwen1.5-0.5b and
+               mamba2-370m (48 SSD launches at N=128) in full,
+               llama-3.2-vision-11b in full (32 flash launches; every cross
+               layer's gates set to 1.0) and seamless-m4t-medium in full
+               (24: 12 non-causal encoder, 12 decoder), both with seeded
+               image embeddings or audio frames from ``data/pipeline``,
+               deepseek-v2-236b (MLA, no flash), stablelm-12b (flash at hd
+               160), command-r-plus-104b and qwen1.5-110b at full width,
+               depth cut to fit one card; 8 requests of up to 1024 prompt
+               tokens, 16 new tokens, max_len 1040, random float32
+               weights; launches zeroed just before and read just after,
+               every step's logits finite (``[lm:<arch>]`` lines: prefill
+               ms, decode tok/s, launches, card MiB, the cut); the vlm's
+               and audio arch's prefill logits moved by their modality
+               input (against the engine's zeros); flash held to its plain
+               version at every served shape and timed at olmoe's,
+               stablelm's, llama's and seamless's encoder shapes, SSD at
+               mamba2's, the prefill and decode step of olmoe, mamba2,
+               llama and seamless profiled; then one full-width layer per
+               family on the card against the CPU (olmoe's MoE block,
+               deepseek's MLA + MoE block, a mamba2 block, stablelm's
+               hd-160 block, llama's cross layer, seamless's encoder and
+               decoder blocks), router top-k compared first, a flip allowed
+               only at a near tie (``[lm-layer:<arch>]`` lines).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -662,9 +671,10 @@ def check_lm_kernels(dev) -> dict:
         for causal, window in ((True, 0), (False, 0), (True, 8),
                                (True, 64)):
             # Zamba2 (80), small GQA (64), olmoe (16/16/128), command-r
-            # (96/8/128: groups of 12), stablelm (32/8/160)
+            # (96/8/128: groups of 12), stablelm (32/8/160), llama-vision
+            # (32/8/128: groups of 4)
             for H, K, hd in ((4, 4, 80), (8, 2, 64), (16, 16, 128),
-                             (96, 8, 128), (32, 8, 160)):
+                             (96, 8, 128), (32, 8, 160), (32, 8, 128)):
                 err = flash_err(*rand_qkv(rng, 2, S, H, K, hd, dev),
                                 causal, window)
                 log(f"[kernels] flash_attention S={S} H={H} K={K} hd={hd} "
@@ -847,8 +857,9 @@ def lm_serve(dev) -> dict:
             "ssd_kwargs": cap_sd.kwargs}
 
 
-def lm_breakdown(engine, reqs, dev) -> dict:
-    """One prefill and one decode step of the served batch under
+def lm_breakdown(engine, reqs, dev, extra=None) -> dict:
+    """One prefill and one decode step of the served batch (with the
+    modality inputs ``extra`` of a vlm or audio arch) under
     ``torch.profiler``: device time by kernel group (the two LM kernels,
     cuBLAS/CUTLASS GEMMs, everything else), the device time under the MoE
     dispatch and combine einsums (``models/moe.py``'s profiler range; their
@@ -858,14 +869,13 @@ def lm_breakdown(engine, reqs, dev) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    toks = torch.from_numpy(engine._pad_batch(reqs)).to(dev)
+    batch = engine._batch(reqs, extra)
     model = engine.model
-    _, cache = model.prefill({"tokens": toks}, engine.max_len)
-    cur = torch.zeros((toks.shape[0], 1), dtype=torch.long, device=dev)
+    _, cache = model.prefill(batch, engine.max_len)
+    cur = torch.zeros((len(reqs), 1), dtype=torch.long, device=dev)
     out = {}
     for label, fn in (
-            ("prefill", lambda: model.prefill({"tokens": toks},
-                                              engine.max_len)),
+            ("prefill", lambda: model.prefill(batch, engine.max_len)),
             ("decode_step", lambda: model.decode_step(cache, cur))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1177,17 +1187,24 @@ def lm_vs_cpu(dev) -> dict:
     return {"max_abs_err": err}
 
 # ---------------------------------------------------------------------------
-# phase 10: the dense, moe and ssm families served at full width
+# phase 10: the dense, moe, ssm, vlm and audio families served at full width
 # ---------------------------------------------------------------------------
 
 # Depth cut where the full model does not fit one card in float32 (None:
 # full depth).  The weights after the cut: olmoe 27.7 GB, qwen0.5b 1.9 GB,
-# mamba2 1.5 GB, deepseek 37.3 GB (the dense layer and 2 MoE layers),
-# stablelm 8.6 GB, command-r 25.2 GB, qwen110b 20.8 GB.
+# mamba2 1.5 GB, llama-vision 39.1 GB (9.78 B parameters: the reference's
+# param_count, 11.52 B, counts the 8 cross layers twice), seamless 3.9 GB,
+# deepseek 37.3 GB (the dense layer and 2 MoE layers), stablelm 8.6 GB,
+# command-r 25.2 GB, qwen110b 20.8 GB.
 LM_FAMILIES = {"olmoe-1b-7b": None, "qwen1.5-0.5b": None,
-               "mamba2-370m": None, "deepseek-v2-236b": 3,
+               "mamba2-370m": None, "llama-3.2-vision-11b": None,
+               "seamless-m4t-medium": None, "deepseek-v2-236b": 3,
                "stablelm-12b": 4, "command-r-plus-104b": 2,
                "qwen1.5-110b": 2}
+LIVE_GATE = 1.0       # the vlm's cross gates on the card (tanh 0.76): the
+                      # reference's zero gates would shut every cross layer
+LIVE_MIN = 1e-3       # least max |prefill logits| change that the modality
+                      # input must make (a dead cross path makes 0)
 
 
 def family_config(arch: str):
@@ -1201,12 +1218,40 @@ def family_config(arch: str):
             {"depth": f"{full.num_layers} -> {layers} layers"})
 
 
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: one per GQA self-attention layer
+    (the vlm's self blocks; the audio arch's encoder and decoder blocks),
+    none for MLA or Mamba-2 alone."""
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        return cfg.num_layers // per * (per - 1)
+    if cfg.family == "audio":
+        return cfg.encoder_layers + cfg.num_layers
+    if cfg.family == "ssm" or cfg.mla is not None:
+        return 0
+    return cfg.num_layers
+
+
+def modality_inputs(cfg, n: int, seed: int):
+    """The vlm's image embeddings or the audio arch's frames for ``n``
+    requests from ``data/pipeline`` (None for the other families)."""
+    import numpy as np
+    from repro_torch.data.pipeline import _add_modalities
+    out = {}
+    _add_modalities(out, cfg, n, np.random.default_rng(seed))
+    return out or None
+
+
 def serve_family(arch: str, dev) -> dict:
     """One arch through ``ServeEngine.serve``: 8 requests of up to 1024
     prompt tokens (left-padded to 1024, four SSD chunks for mamba2), 16
     new tokens, max_len 1040, after a warm-up serve of 2 new tokens.
-    Launch counters zeroed just before, read just after; every step's
-    logits finite; the model freed by the caller."""
+    A vlm or audio arch is served its seeded modality inputs, its warm-up
+    takes the same prompts with the engine's zero inputs, and the two
+    prefills' logits must differ by more than LIVE_MIN (the vlm's cross
+    gates set to LIVE_GATE first).  Launch counters zeroed just before,
+    read just after; every step's logits finite; the model freed by the
+    caller."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1216,31 +1261,40 @@ def serve_family(arch: str, dev) -> dict:
     cfg, reduced = family_config(arch)
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, max_len=1040, seed=0, device=dev)
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            for cp in engine.model.cross_blocks:
+                cp["attn"]["gate"].fill_(LIVE_GATE)
+                cp["gate_mlp"].fill_(LIVE_GATE)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in engine.model.parameters())
     reqs = lm_requests(cfg, 8, 1024, 16, seed=0)
-    engine.serve(lm_requests(cfg, 8, 1024, 2, seed=1))   # warm-up
-    finite = []
+    extra = modality_inputs(cfg, len(reqs), seed=0)
+    finite, first = [], []
     sample = engine._sample
 
     def checked(logits, temps, gen):
+        if not finite:
+            first.append(logits.clone())      # the prefill's logits
         finite.append(bool(torch.isfinite(logits).all()))
         return sample(logits, temps, gen)
     engine._sample = checked
+    # warm-up; for a vlm or audio arch the same prompts, zero modality
+    engine.serve(lm_requests(cfg, 8, 1024, 2, seed=0 if extra else 1))
+    finite.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     with Capture(fa, "flash_attention") as cap_fa, \
             Capture(sd, "ssd_scan") as cap_sd:
         fa.reset_launches()
         sd.reset_launches()
-        outs = engine.serve(reqs, seed=0)
+        outs = engine.serve(reqs, seed=0, extra_inputs=extra)
         torch.cuda.synchronize()
         launches = {"flash_attention": fa.LAUNCHES, "ssd_scan": sd.LAUNCHES}
     engine._sample = sample
     st = dict(engine.last_stats)
-    attn = cfg.family != "ssm" and cfg.mla is None
-    want = {"flash_attention": cfg.num_layers if attn else 0,
+    want = {"flash_attention": flash_per_prefill(cfg),
             "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0}
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want} "
@@ -1251,6 +1305,13 @@ def serve_family(arch: str, dev) -> dict:
         raise AssertionError(f"{arch}: finite logits {finite}, tokens "
                              f"{toks.shape} [{toks.min()}, {toks.max()}]")
     B, S = st["batch"], st["prompt_len"]
+    live = None
+    if extra:
+        live = float((first[1] - first[0]).abs().max())
+        if not live > LIVE_MIN:
+            raise AssertionError(f"{arch}: the modality input moves the "
+                                 f"prefill logits by {live} (<= {LIVE_MIN})"
+                                 f": the cross path is dead")
     out = {"arch": arch, "params": n_params,
            "param_count": cfg.param_count(), "build_s": build_s,
            "prompt_len": S, "prefill_ms": st["prefill_s"] * 1e3,
@@ -1259,11 +1320,25 @@ def serve_family(arch: str, dev) -> dict:
            "card_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
            "reduced": reduced or "none (full depth)",
            "tokens_req0": toks[0].tolist()}
+    if extra:
+        out.update(modality={k: list(v.shape) for k, v in extra.items()},
+                   modality_logit_change=live,
+                   cross_gates=LIVE_GATE if cfg.family == "vlm" else None)
     log(f"[lm:{arch}] {json.dumps(out)}")
-    out.update(engine=engine, reqs=reqs, flash_args=cap_fa.args,
+    out.update(engine=engine, reqs=reqs, extra=extra, flash_args=cap_fa.args,
                flash_kwargs=cap_fa.kwargs, ssd_args=cap_sd.args,
                ssd_kwargs=cap_sd.kwargs)
     return out
+
+
+def _live_zeros(tree, gen) -> None:
+    """Draw every all-zero tensor of ``tree`` (biases, layernorm shifts)
+    as N(0, 0.5) noise in place."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            _live_zeros(v, gen)
+        elif not v.any():
+            v.normal_(0.0, 0.5, generator=gen)
 
 
 def _cpu_tree(tree):
@@ -1283,55 +1358,91 @@ def _moe_routing(p, h, mo):
     return probs, idx, keep
 
 
-def layer_vs_cpu(arch: str, dev) -> dict:
-    """One full-width layer of ``arch`` on the card and on the CPU, same
-    weights (drawn on the card, copied), 2 x 256 tokens.  Mamba2: norm +
-    Mamba block (SSD kernel at N=128); stablelm: the hd-160 attention +
-    MLP block (flash kernel); olmoe and deepseek: attention (GQA with
-    qk-norm; MLA) + MoE.  For a MoE block the router's top-k ids are
-    compared first: a token may take other experts only where two of its
-    top-(k+1) router probabilities lie within twice the largest card-vs-CPU
-    difference of the probabilities (at most ROUTER_TIE) of each other (and
-    a token of its group may then keep or lose a capacity slot); every
-    other token is held to the tolerance."""
+def layer_vs_cpu(name: str, dev) -> dict:
+    """One full-width layer of ``name`` (an arch, or ``arch:part``) on the
+    card and on the CPU, same weights (drawn on the card, copied), 2 x 256
+    tokens.  Mamba2: norm + Mamba block (SSD kernel at N=128); stablelm:
+    the hd-160 attention + MLP block (flash kernel); olmoe and deepseek:
+    attention (GQA with qk-norm; MLA) + MoE; ``llama-3.2-vision-11b:cross``:
+    the gated cross layer (gates LIVE_GATE) over (2, 1600, 4096) image
+    embeddings; ``seamless-m4t-medium:encoder``: an encoder block
+    (non-causal flash); ``seamless-m4t-medium:decoder``: a decoder block
+    (causal flash, then cross-attention over a (2, 1024, 1024) encoder
+    output); seamless's zero-initialised biases and layernorm shifts are
+    drawn as noise, so every bias is live.  For a MoE block the router's
+    top-k ids are compared first: a token may take other experts only where
+    two of its top-(k+1) router probabilities lie within twice the largest
+    card-vs-CPU difference of the probabilities (at most ROUTER_TIE) of each
+    other (and a token of its group may then keep or lose a capacity slot);
+    every other token is held to the tolerance."""
     import dataclasses
     import torch
+    from repro_torch.models import attention as att
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import ssm as ssm_lib
     from repro_torch.models.layers import ParamTree, apply_norm, init_norm
-    from repro_torch.models.model import _block_forward, _init_block
+    from repro_torch.models.model import (_block_forward,
+                                          _block_forward_cross, _cross_block,
+                                          _init_block, _init_cross_block,
+                                          _init_decoder_block)
 
+    arch, _, part = name.partition(":")
     cfg, _ = family_config(arch)
+    spec = att.AttnSpec.from_cfg(cfg)
     if cfg.moe is not None:          # one MoE layer (deepseek's 1st is dense)
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, first_dense_layers=0))
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
+    B, S = 2, 256
+    src = None                       # the cross layers' source (CPU)
     if cfg.family == "ssm":
         tree = {"norm": init_norm(cfg.d_model, cfg.norm, dev),
                 "mamba": ssm_lib.init_mamba_block(cfg, gen, dev)}
 
-        def fwd(p, x, pos):
+        def fwd(p, x, pos, src):
             h = apply_norm(p["norm"], x, cfg.norm)
             return x + ssm_lib.mamba_forward(p["mamba"], h, cfg)
+    elif part == "cross":
+        tree = _init_cross_block(cfg, gen, dev)
+        tree["attn"]["gate"].fill_(LIVE_GATE)
+        tree["gate_mlp"].fill_(LIVE_GATE)
+        src = torch.randn((B, cfg.num_image_tokens, cfg.d_vision),
+                          generator=torch.Generator().manual_seed(9))
+
+        def fwd(p, x, pos, src):
+            return _cross_block(p, x, att.cross_kv(p["attn"], src, spec),
+                                cfg)
+    elif part == "decoder":
+        tree = _init_decoder_block(cfg, gen, dev)
+        src = torch.randn((B, cfg.num_audio_frames, cfg.d_model),
+                          generator=torch.Generator().manual_seed(9))
+
+        def fwd(p, x, pos, src):
+            return _block_forward_cross(p, x, pos,
+                                        att.cross_kv(p["cross"], src, spec),
+                                        cfg)[0]
     else:
         tree = _init_block(cfg, gen, dev, layer_is_moe=cfg.moe is not None)
 
-        def fwd(p, x, pos):
-            return _block_forward(p, x, pos, cfg)[0]
+        def fwd(p, x, pos, src):
+            return _block_forward(p, x, pos, cfg,
+                                  causal=part != "encoder")[0]
+    if cfg.family == "audio":
+        _live_zeros(tree, gen)
     gpu, cpu = ParamTree(tree), ParamTree(_cpu_tree(tree))
     del tree
-    B, S = 2, 256
     x = torch.randn((B, S, cfg.d_model),
                     generator=torch.Generator().manual_seed(8))
     pos = torch.arange(S)[None].expand(B, S)
     with Capture(moe_lib, "apply_moe") as cap_g:
-        yg = fwd(gpu, x.to(dev), pos.to(dev)).cpu()
+        yg = fwd(gpu, x.to(dev), pos.to(dev),
+                 None if src is None else src.to(dev)).cpu()
     with Capture(moe_lib, "apply_moe") as cap_c:
-        yc = fwd(cpu, x, pos)
+        yc = fwd(cpu, x, pos, src)
     held = torch.ones((B, S), dtype=torch.bool)
-    out = {"arch": arch, "tokens": B * S}
+    out = {"arch": name, "tokens": B * S}
     if cfg.moe is not None:
         pg, ig, kg = (t.cpu() for t in _moe_routing(
             gpu["moe"], cap_g.args[1], cfg.moe))
@@ -1360,29 +1471,33 @@ def layer_vs_cpu(arch: str, dev) -> dict:
     out.update(max_abs_err=float(diff.max()), max_abs_out=scale,
                tolerance=tol, held_tokens=int(held.sum()),
                seconds=time.perf_counter() - t0)
-    log(f"[lm-layer:{arch}] card vs CPU: {json.dumps(out)}")
+    log(f"[lm-layer:{name}] card vs CPU: {json.dumps(out)}")
     if not (torch.isfinite(yg).all() and out["max_abs_err"] <= tol):
-        raise AssertionError(f"{arch}: card and CPU layer differ by "
+        raise AssertionError(f"{name}: card and CPU layer differ by "
                              f"{out['max_abs_err']} (> {tol})")
     return out
 
 
 def families_phase(dev) -> dict:
     """Phase 10: each family's archs served on the card one after another
-    (each freed before the next), the kernels timed at olmoe's and
-    stablelm's flash shapes and mamba2's SSD shape, olmoe's and mamba2's
-    prefill and decode step under the profiler; then one full-width layer
-    per family against the CPU."""
+    (each freed before the next), the kernels timed at olmoe's,
+    stablelm's, llama's and seamless's (the encoder's) flash shapes and
+    mamba2's SSD shape, the prefill and decode step of olmoe, mamba2,
+    llama and seamless under the profiler; then one full-width layer per
+    family against the CPU."""
     import gc
     import torch
     t_phase = time.perf_counter()
     runs, timed, breakdown, flash_errs = {}, {}, {}, {}
     for arch in LM_FAMILIES:
         run = serve_family(arch, dev)
-        if arch in ("olmoe-1b-7b", "mamba2-370m"):
-            breakdown[arch] = lm_breakdown(run["engine"], run["reqs"], dev)
+        if arch in ("olmoe-1b-7b", "mamba2-370m", "llama-3.2-vision-11b",
+                    "seamless-m4t-medium"):
+            breakdown[arch] = lm_breakdown(run["engine"], run["reqs"], dev,
+                                           run["extra"])
             log(f"[breakdown:lm:{arch}] {json.dumps(breakdown[arch])}")
-        if arch in ("olmoe-1b-7b", "stablelm-12b"):
+        if arch in ("olmoe-1b-7b", "stablelm-12b", "llama-3.2-vision-11b",
+                    "seamless-m4t-medium"):
             timed[arch] = flash_at_serving_shape(run, dev)
             flash_errs[arch] = timed[arch]["serving_max_abs_err"]
         elif run["launches_per_prefill"]["flash_attention"]:
@@ -1399,13 +1514,15 @@ def families_phase(dev) -> dict:
                 f"{t['mma_flops']} 3xTF32 + {t['flops'] - t['mma_flops']} "
                 f"other flops, {t['bytes']} bytes)")
         runs[arch] = {k: v for k, v in run.items() if k not in (
-            "engine", "reqs", "flash_args", "flash_kwargs", "ssd_args",
-            "ssd_kwargs")}
+            "engine", "reqs", "extra", "flash_args", "flash_kwargs",
+            "ssd_args", "ssd_kwargs")}
         del run
         gc.collect()
         torch.cuda.empty_cache()
-    layers = {arch: layer_vs_cpu(arch, dev) for arch in (
-        "olmoe-1b-7b", "deepseek-v2-236b", "mamba2-370m", "stablelm-12b")}
+    layers = {name: layer_vs_cpu(name, dev) for name in (
+        "olmoe-1b-7b", "deepseek-v2-236b", "mamba2-370m", "stablelm-12b",
+        "llama-3.2-vision-11b:cross", "seamless-m4t-medium:encoder",
+        "seamless-m4t-medium:decoder")}
     gc.collect()
     torch.cuda.empty_cache()
     launches = {k: {arch: r["launches_per_prefill"][k]
@@ -3610,8 +3727,8 @@ def main() -> int:
                             worlds["provider_outage"], dev)
     log(f"[frontier] phase 9 in {time.perf_counter() - t0:.1f}s")
 
-    # 10. the dense, moe and ssm families served at full width, one full
-    # layer of each against the CPU
+    # 10. the dense, moe, ssm, vlm and audio families served at full
+    # width, one full layer of each against the CPU
     torch.cuda.empty_cache()
     fam = families_phase(dev)
 

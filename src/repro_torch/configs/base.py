@@ -1,11 +1,10 @@
 """Architecture configuration of the LM substrate (a copy of the reference's
 ``configs/base.py`` dataclasses, unchanged in behaviour).
 
-Each ported architecture has one module in this package exporting
-``CONFIG`` (the exact full-scale config); ``get_arch`` maps ``--arch <id>``
-to it.  ``reduced()`` derives the CPU-smoke variant (2 layers,
-d_model<=256, <=4 experts).  Architectures whose model family is not ported
-yet are known by id and raise ``NotImplementedError`` from ``get_arch``.
+Every architecture has one module in this package exporting ``CONFIG``
+(the exact full-scale config); ``get_arch`` maps ``--arch <id>`` to it.
+``reduced()`` derives the CPU-smoke variant (2 layers, d_model<=256, <=4
+experts).  ``SHAPES`` names the workload shapes (``get_shape``).
 """
 from __future__ import annotations
 
@@ -152,6 +151,16 @@ class ArchConfig:
             n += n_cross * (attn + ffn_dense)
         return n
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        full_ffn = mo.num_experts * 3 * self.d_model * mo.d_expert
+        act_ffn = mo.top_k * 3 * self.d_model * mo.d_expert
+        n_moe_layers = self.num_layers - mo.first_dense_layers
+        return self.param_count() - n_moe_layers * (full_ffn - act_ffn)
+
     def reduced(self) -> "ArchConfig":
         """CPU-smoke variant: 2 layers, d_model<=256, <=4 experts."""
         d = min(self.d_model, 256)
@@ -189,6 +198,22 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 ARCH_IDS = [
     "command-r-plus-104b",
     "olmoe-1b-7b",
@@ -202,20 +227,17 @@ ARCH_IDS = [
     "seamless-m4t-medium",
 ]
 
-# the architectures whose model family the port runs (vlm and audio are
-# not ported yet)
-PORTED = ("command-r-plus-104b", "olmoe-1b-7b", "qwen1.5-110b",
-          "stablelm-12b", "deepseek-v2-236b", "mamba2-370m", "qwen1.5-0.5b",
-          "zamba2-2.7b")
-
-
 def get_arch(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet; the port runs "
-            f"{list(PORTED)}")
     mod = importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
     return mod.CONFIG
+
+
+def get_shape(shape_id: str) -> ShapeConfig:
+    return SHAPES[shape_id]
+
+
+def all_archs():
+    return {a: get_arch(a) for a in ARCH_IDS}

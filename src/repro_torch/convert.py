@@ -184,7 +184,12 @@ def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
     (MoE weights keep their ``(E, fan_in, fan_out)`` layout); ssm:
     ``blocks`` likewise.  Hybrid: ``blocks`` leaves carry leading axes
     ``(n_super, per)`` and become ``model.blocks[s * per + i]``;
-    ``shared_attn`` is one block.  ``unembed`` is absent with tied
+    ``shared_attn`` is one block.  Vlm: ``blocks.selfs`` leaves carry
+    ``(n_super, per - 1)`` and become ``model.blocks[s * (per - 1) + i]``,
+    ``blocks.cross`` leaves ``(n_super,)`` and become
+    ``model.cross_blocks[s]``.  Audio: ``enc_blocks`` (``(E,)``) and
+    ``blocks`` (``(L,)``, with ``norm_x`` and ``cross``) like dense
+    blocks, ``enc_norm`` one tree.  ``unembed`` is absent with tied
     embeddings.  Loads into ``model`` in place when given (its device is
     kept), else builds a CPU model.  Raises on any key or shape that does
     not fit.
@@ -199,6 +204,8 @@ def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
         want.add("unembed")
     if cfg.family == "hybrid":
         want.add("shared_attn")
+    elif cfg.family == "audio":
+        want |= {"enc_blocks", "enc_norm"}
     elif getattr(model, "dense_blocks", None):
         want.add("dense_blocks")
     if set(params.keys()) != want:
@@ -225,7 +232,28 @@ def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
                 _load_tree(model.blocks[s * model.per + i], params["blocks"],
                            (s, i), f"blocks[{s},{i}]")
         return model
-    for key in sorted(want & {"blocks", "dense_blocks"}):
+    if cfg.family == "vlm":
+        blocks = params["blocks"]
+        if sorted(blocks.keys()) != ["cross", "selfs"]:
+            raise ValueError(f"blocks keys {sorted(blocks.keys())} do not "
+                             f"fit the vlm's ['cross', 'selfs']")
+        n = model.per - 1
+        for key, lead in (("selfs", (model.n_super, n)),
+                          ("cross", (model.n_super,))):
+            got = _lead(blocks[key], len(lead))
+            if got != lead:
+                raise ValueError(f"blocks.{key} are stacked {got}, the "
+                                 f"model has {lead}")
+        for s in range(model.n_super):
+            for i in range(n):
+                _load_tree(model.blocks[s * n + i], blocks["selfs"], (s, i),
+                           f"blocks.selfs[{s},{i}]")
+            _load_tree(model.cross_blocks[s], blocks["cross"], (s,),
+                       f"blocks.cross[{s}]")
+        return model
+    if cfg.family == "audio":
+        _load_tree(model.enc_norm, params["enc_norm"], (), "enc_norm")
+    for key in sorted(want & {"blocks", "dense_blocks", "enc_blocks"}):
         stack = getattr(model, key)
         lead = _lead(params[key], 1)
         if lead != (len(stack),):

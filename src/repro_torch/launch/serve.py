@@ -19,7 +19,10 @@ flash-attention kernel for GQA and the SSD kernel for Mamba-2, then greedy
 or temperature decode), reduced unless ``--full``: the dense
 (``qwen1.5-0.5b``, ``qwen1.5-110b``, ``stablelm-12b``,
 ``command-r-plus-104b``), moe (``olmoe-1b-7b``, ``deepseek-v2-236b``),
-ssm (``mamba2-370m``) and hybrid (``zamba2-2.7b``) archs.  The longest
+ssm (``mamba2-370m``), hybrid (``zamba2-2.7b``), vlm
+(``llama-3.2-vision-11b``) and audio (``seamless-m4t-medium``) archs;
+the vlm and audio archs take the engine's zero image embeddings or audio
+frames, as the reference's CLI does.  The longest
 prompt is exactly ``--prompt-len`` tokens (the others are drawn shorter
 and left-padded); for the ssm and hybrid archs that length must be at
 most the SSM chunk or a multiple of it.

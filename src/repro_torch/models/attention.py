@@ -1,5 +1,7 @@
 """Attention: GQA (full / sliding-window prefill, one-token decode against a
-full or ring-buffer KV cache) and MLA (DeepSeek-V2's latent-compressed KV).
+full or ring-buffer KV cache), cross-attention (the vlm's gated image
+layers, the enc-dec decoder's) and MLA (DeepSeek-V2's latent-compressed
+KV).
 
 Conventions (the reference's ``models/attention.py``):
 activations  x: (B, S, d_model)
@@ -14,7 +16,10 @@ GQA's full-sequence attention goes through the flash-attention kernel
 PyTorch (``sdpa`` over the cache), as in the reference.  MLA is plain
 PyTorch in both: its prefill is the reference's own einsum (q.k over 192
 dims, v of 128, which the flash kernel does not take), its decode the
-weight-absorbed form.  Cross-attention is not ported yet.
+weight-absorbed form.  Cross-attention is plain PyTorch too (``sdpa``
+with no mask, as the reference's ``_sdpa``): its keys are the source's
+(image tokens or encoder frames), a length the flash kernel, like the
+Pallas kernel it ports, does not take beside the query's.
 """
 from __future__ import annotations
 
@@ -131,6 +136,60 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     out = sdpa(q, cache_k, cache_v, mask)
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (VLM image layers, enc-dec)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(spec: AttnSpec, d_src: int,
+                         gen: Optional[torch.Generator], dev, *,
+                         gated: bool = False) -> Dict:
+    """Queries from ``d_model``, keys and values from the source's
+    ``d_src``; ``gated`` adds the scalar ``gate`` (zero: tanh(0) shuts
+    the layer at init, as in the reference)."""
+    H, K, hd, d = spec.num_heads, spec.num_kv_heads, spec.head_dim, spec.d_model
+    p = {
+        "wq": dense_init((d, H * hd), gen, dev),
+        "wk": dense_init((d_src, K * hd), gen, dev),
+        "wv": dense_init((d_src, K * hd), gen, dev),
+        "wo": dense_init((H * hd, d), gen, dev),
+    }
+    if spec.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=F32, device=dev)
+        p["bk"] = torch.zeros((K * hd,), dtype=F32, device=dev)
+        p["bv"] = torch.zeros((K * hd,), dtype=F32, device=dev)
+    if gated:
+        p["gate"] = torch.zeros((), dtype=F32, device=dev)
+    return p
+
+
+def cross_kv(p, src: torch.Tensor, spec: AttnSpec):
+    """Cross K/V (B, T, K, hd) each from source embeddings (B, T, d_src)."""
+    B, T, _ = src.shape
+    K, hd = spec.num_kv_heads, spec.head_dim
+    k = src @ p["wk"]
+    v = src @ p["wv"]
+    if spec.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k.reshape(B, T, K, hd), v.reshape(B, T, K, hd)
+
+
+def cross_attention_forward(p, x: torch.Tensor, kv, spec: AttnSpec
+                            ) -> torch.Tensor:
+    """x (B, S, d) attends to every source position of ``kv``; times
+    tanh(gate) when the layer is gated."""
+    B, S, _ = x.shape
+    H, hd = spec.num_heads, spec.head_dim
+    q = x @ p["wq"]
+    if spec.qkv_bias:
+        q = q + p["bq"]
+    k, v = kv
+    out = sdpa(q.reshape(B, S, H, hd), k, v, None)
+    y = out.reshape(B, S, -1) @ p["wo"]
+    if "gate" in p:
+        y = torch.tanh(p["gate"]) * y
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Model facade of the port: the decoder-only families of the reference's
+"""Model facade of the port: the six families of the reference's
 ``models/model.py``.
 
   dense   GQA decoder (command-r-plus, qwen1.5-110b/0.5b, stablelm-12b)
@@ -7,14 +7,23 @@
   ssm     Mamba-2 stack (mamba2-370m)
   hybrid  Mamba-2 blocks + one shared attention block every
           ``shared_attn_every`` (zamba2)
+  vlm     dense decoder + a gated cross-attention layer over image
+          embeddings closing every ``cross_attn_every`` layers
+          (llama-3.2-vision)
+  audio   encoder-decoder (seamless-m4t): a non-causal encoder over audio
+          frames, decoder blocks with cross-attention over its output
 
-vlm and audio (cross-attention, the encoder) and the training ``forward``
-are not ported yet.  The reference stacks each layer's parameters and
-runs ``lax.scan`` over the stack; here every block is its own module
-(``ParamTree``) in an ``nn.ModuleList`` and the scan is a Python loop:
-``dense_blocks`` then ``blocks`` (dense/moe), ``blocks`` (ssm), and
-``blocks[s * per + i]`` as Mamba block ``i`` of super-block ``s``
-(hybrid).  Dense weights keep the reference's ``(fan_in, fan_out)``
+The vision encoder and the audio frontend are stubs, as in the reference:
+a batch carries ``image_embeds`` (B, T, d_vision) or ``audio_frames`` (B,
+F, d_model) beside its tokens.  The training ``forward`` is not ported
+yet.  The reference stacks each layer's parameters and runs ``lax.scan``
+over the stack; here every block is its own module (``ParamTree``) in an
+``nn.ModuleList`` and the scan is a Python loop: ``dense_blocks`` then
+``blocks`` (dense/moe), ``blocks`` (ssm), ``blocks[s * per + i]`` as
+Mamba block ``i`` of super-block ``s`` (hybrid), ``blocks[s * (per - 1)
++ i]`` as self block ``i`` of super-block ``s`` and ``cross_blocks[s]``
+its cross layer (vlm), ``enc_blocks`` then ``enc_norm`` and ``blocks``
+(audio).  Dense weights keep the reference's ``(fan_in, fan_out)``
 layout; parameters and caches are float32, the type the reference serves
 in and the kernels take.  With tied embeddings there is no ``unembed``
 and the logits go through ``embed.T``.
@@ -28,7 +37,12 @@ Cache (as the reference's ``init_cache``; W = the sliding window when
                  conv_bc (L, B, 2N, d_conv-1)
   hybrid         ssm/conv_x/conv_bc with leading (n_super, per), and
                  k, v (n_super, B, Wa, K, hd), Wa = min(W, sliding_window)
+  vlm            k, v (n_super, per - 1, B, W, K, hd); cross_k, cross_v
+                 (n_super, B, T, K, hd) of the image tokens
+  audio          k, v (L, B, W, K, hd); cross_k, cross_v (L, B, F, K, hd)
+                 of the encoder's output
   pos            Python int
+``prefill`` computes each layer's cross K/V once and keeps it;
 ``decode_step`` updates the cache tensors in place and returns the same
 dict (the reference returns a new pytree).
 """
@@ -49,7 +63,9 @@ from repro_torch.models.layers import (F32, ParamTree, apply_mlp,
                                        apply_norm, embed_init, init_mlp,
                                        init_norm)
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the stub modality input a vlm or audio batch carries
+MODALITY = {"vlm": "image_embeds", "audio": "audio_frames"}
 
 
 def _init_block(cfg: ArchConfig, gen: Optional[torch.Generator], dev, *,
@@ -116,6 +132,59 @@ def _block_decode(p, x, pos: int, kcache, vcache, cfg: ArchConfig, *,
     return x + _ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)[0]
 
 
+def _init_cross_block(cfg: ArchConfig, gen, dev) -> Dict:
+    """The vlm's cross layer: gated cross-attention over ``d_vision`` and
+    an MLP behind the scalar ``gate_mlp`` (both gates zero at init)."""
+    return {"norm1": init_norm(cfg.d_model, cfg.norm, dev),
+            "attn": att.init_cross_attention(AttnSpec.from_cfg(cfg),
+                                             cfg.d_vision, gen, dev,
+                                             gated=True),
+            "norm2": init_norm(cfg.d_model, cfg.norm, dev),
+            "mlp": init_mlp(cfg.d_model, cfg.d_ff, gen, dev),
+            "gate_mlp": torch.zeros((), dtype=F32, device=dev)}
+
+
+def _cross_block(cp, x, ckv, cfg: ArchConfig):
+    """The vlm's cross layer over the image K/V ``ckv``:
+    x + tanh(gate) * attn, then x + tanh(gate_mlp) * mlp."""
+    h = apply_norm(cp["norm1"], x, cfg.norm)
+    x = x + att.cross_attention_forward(cp["attn"], h, ckv,
+                                        AttnSpec.from_cfg(cfg))
+    h2 = apply_norm(cp["norm2"], x, cfg.norm)
+    return x + torch.tanh(cp["gate_mlp"]) * apply_mlp(cp["mlp"], h2, cfg.act)
+
+
+def _init_decoder_block(cfg: ArchConfig, gen, dev) -> Dict:
+    """An enc-dec decoder block: a self-attention block plus ``norm_x``
+    and cross-attention over the encoder's ``d_model`` output."""
+    p = _init_block(cfg, gen, dev)
+    p["norm_x"] = init_norm(cfg.d_model, cfg.norm, dev)
+    p["cross"] = att.init_cross_attention(AttnSpec.from_cfg(cfg),
+                                          cfg.d_model, gen, dev)
+    return p
+
+
+def _cross_ffn(lp, x, ckv, cfg: ArchConfig):
+    """A decoder block after its self-attention: cross-attention over the
+    encoder's K/V ``ckv``, then the MLP, each pre-norm with its residual."""
+    hx = apply_norm(lp["norm_x"], x, cfg.norm)
+    x = x + att.cross_attention_forward(lp["cross"], hx, ckv,
+                                        AttnSpec.from_cfg(cfg))
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg.norm),
+                         cfg.act)
+
+
+def _block_forward_cross(lp, x, positions, ckv, cfg: ArchConfig, *,
+                         window: int = 0):
+    """Enc-dec decoder block over the full sequence: causal self-attention
+    (flash), cross-attention over ``ckv``, FFN -> (x, (k, v))."""
+    h = apply_norm(lp["norm1"], x, cfg.norm)
+    a, kv = att.attention_forward(lp["attn"], h, positions,
+                                  AttnSpec.from_cfg(cfg), causal=True,
+                                  window=window, return_cache=True)
+    return _cross_ffn(lp, x + a, ckv, cfg), kv
+
+
 def _mamba_layer(cfg: ArchConfig, gen, dev) -> ParamTree:
     return ParamTree({"norm": init_norm(cfg.d_model, cfg.norm, dev),
                       "mamba": ssm_lib.init_mamba_block(cfg, gen, dev)})
@@ -162,10 +231,9 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
                  seed: int = 0, init: bool = True):
         super().__init__()
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} ({cfg.name}) is not ported "
-                f"yet; the port runs {list(PORTED_FAMILIES)}")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown model family {cfg.family!r} "
+                             f"({cfg.name}); known: {list(FAMILIES)}")
         self.cfg = cfg
         dev = resolve_device(device)
         gen = None
@@ -194,6 +262,23 @@ class Model(nn.Module):
         elif cfg.family == "ssm":
             self.blocks = nn.ModuleList(_mamba_layer(cfg, gen, dev)
                                         for _ in range(cfg.num_layers))
+        elif cfg.family == "vlm":
+            self.per = cfg.cross_attn_every
+            self.n_super = cfg.num_layers // self.per
+            self.blocks = nn.ModuleList(
+                ParamTree(_init_block(cfg, gen, dev))
+                for _ in range(self.n_super * (self.per - 1)))
+            self.cross_blocks = nn.ModuleList(
+                ParamTree(_init_cross_block(cfg, gen, dev))
+                for _ in range(self.n_super))
+        elif cfg.family == "audio":
+            self.enc_blocks = nn.ModuleList(
+                ParamTree(_init_block(cfg, gen, dev))
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = ParamTree(init_norm(cfg.d_model, cfg.norm, dev))
+            self.blocks = nn.ModuleList(
+                ParamTree(_init_decoder_block(cfg, gen, dev))
+                for _ in range(cfg.num_layers))
         else:
             self.per = cfg.shared_attn_every
             self.n_super = cfg.num_layers // self.per
@@ -221,15 +306,46 @@ class Model(nn.Module):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _cross_source(self, batch) -> Optional[torch.Tensor]:
+        """What the cross layers attend to: the vlm's image embeddings, or
+        the audio arch's frames through the encoder (float32, on the
+        model's device); None for the other families.  Raises when the
+        batch lacks the modality input."""
+        key = MODALITY.get(self.cfg.family)
+        if key is None:
+            return None
+        if not isinstance(batch, dict) or key not in batch:
+            raise ValueError(f"{self.cfg.name} ({self.cfg.family}) needs "
+                             f"batch[{key!r}] beside the tokens")
+        src = torch.as_tensor(batch[key], device=self.device).float()
+        return self._encode(src) if self.cfg.family == "audio" else src
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Audio encoder: ``enc_blocks`` non-causal (the flash kernel's
+        full mask) over the frames at RoPE positions 0..F-1, then
+        ``enc_norm``."""
+        cfg = self.cfg
+        B, F, _ = frames.shape
+        pos = torch.arange(F, device=self.device)[None].expand(B, F)
+        x = frames
+        for lp in self.enc_blocks:
+            x = _block_forward(lp, x, pos, cfg, causal=False)[0]
+        return apply_norm(self.enc_norm, x, cfg.norm)
+
     def _attn_layers(self, cache: Dict):
-        """Dense/MoE: (block, its two cache tensors) per layer in order:
-        k/v for GQA, latent/k_rope for MLA (``*0`` for the dense layers)."""
+        """Dense/moe/audio: (block, its two cache tensors) per layer in
+        order: k/v for GQA, latent/k_rope for MLA (``*0`` for the dense
+        layers); vlm: its self blocks, k/v flattened over (n_super,
+        per - 1)."""
         if self.cfg.mla is not None:
             return ([(b, cache["latent0"][i], cache["k_rope0"][i])
                      for i, b in enumerate(self.dense_blocks)]
                     + [(b, cache["latent"][i], cache["k_rope"][i])
                        for i, b in enumerate(self.blocks)])
-        layers = list(self.dense_blocks) + list(self.blocks)
+        if self.cfg.family == "vlm":
+            ks, vs = cache["k"].flatten(0, 1), cache["v"].flatten(0, 1)
+            return [(b, ks[i], vs[i]) for i, b in enumerate(self.blocks)]
+        layers = list(getattr(self, "dense_blocks", ())) + list(self.blocks)
         return [(b, cache["k"][i], cache["v"][i])
                 for i, b in enumerate(layers)]
 
@@ -241,8 +357,28 @@ class Model(nn.Module):
                 for i, b in enumerate(self.blocks)]
 
     # ----- caches -------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_len: int) -> Dict:
-        """Zero cache for ``decode_step``."""
+    def init_cache(self, batch_size: int, max_len: int,
+                   batch: Optional[dict] = None) -> Dict:
+        """Zero cache for ``decode_step``.  For the vlm and audio archs a
+        ``batch`` with their modality input fills ``cross_k``/``cross_v``
+        (the image tokens' K/V, or the encoder's output's); without it
+        they are zeros of the config's ``num_image_tokens`` or
+        ``num_audio_frames``."""
+        src = None if batch is None else self._cross_source(batch)
+        cache = self._zero_cache(batch_size, max_len,
+                                 None if src is None else src.shape[1])
+        if src is not None:
+            spec = AttnSpec.from_cfg(self.cfg)
+            vlm = self.cfg.family == "vlm"
+            for i, lp in enumerate(self.cross_blocks if vlm else self.blocks):
+                cache["cross_k"][i], cache["cross_v"][i] = att.cross_kv(
+                    lp["attn"] if vlm else lp["cross"], src, spec)
+        return cache
+
+    def _zero_cache(self, batch_size: int, max_len: int,
+                    cross_len: Optional[int] = None) -> Dict:
+        """Zero cache; ``cross_len`` is the cross K/V's source length
+        (default: the config's)."""
         cfg, dev = self.cfg, self.device
         B = batch_size
         W = self._window_for(max_len) or max_len
@@ -251,6 +387,19 @@ class Model(nn.Module):
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=F32, device=dev)
+        if cfg.family in ("vlm", "audio"):
+            if cfg.family == "vlm":
+                lead = (self.n_super, self.per - 1)
+                n_cross, T = self.n_super, cfg.num_image_tokens
+            else:
+                lead = (cfg.num_layers,)
+                n_cross, T = cfg.num_layers, cfg.num_audio_frames
+            T = cross_len or T
+            cache["k"] = zeros(*lead, B, W, K, hd)
+            cache["v"] = zeros(*lead, B, W, K, hd)
+            cache["cross_k"] = zeros(n_cross, B, T, K, hd)
+            cache["cross_v"] = zeros(n_cross, B, T, K, hd)
+            return cache
         if cfg.family in ("dense", "moe"):
             if cfg.mla is not None:
                 m = cfg.mla
@@ -282,20 +431,46 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch, max_len: int):
         """Run the prompt, return (last-token logits (B,V), cache at pos=S).
-        ``batch`` is ``{"tokens": (B, S)}`` (or the tokens themselves)."""
+        ``batch`` is ``{"tokens": (B, S)}`` (or the tokens themselves);
+        the vlm's also holds ``image_embeds`` and the audio arch's
+        ``audio_frames``."""
         cfg = self.cfg
         tokens = self._tokens(batch)
         B, S = tokens.shape
+        src = self._cross_source(batch)
         x = self.embed[tokens]
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
-        cache = self.init_cache(B, max_len)
+        cache = self._zero_cache(B, max_len,
+                                 None if src is None else src.shape[1])
         cache["pos"] = S
+        window = self._window_for(max_len)
+        W = window or max_len
         if cfg.family in ("dense", "moe"):
-            window = self._window_for(max_len)
-            W = window or max_len
             for lp, ca, cb in self._attn_layers(cache):
                 x, _, (a, b) = _block_forward(lp, x, positions, cfg,
                                               window=window)
+                ca[...] = _ring_place(a, S, W)
+                cb[...] = _ring_place(b, S, W)
+        elif cfg.family == "vlm":
+            spec = AttnSpec.from_cfg(cfg)
+            layers = self._attn_layers(cache)
+            n = self.per - 1
+            for s, cp in enumerate(self.cross_blocks):
+                for lp, ca, cb in layers[s * n:(s + 1) * n]:
+                    x, _, (a, b) = _block_forward(lp, x, positions, cfg,
+                                                  window=window)
+                    ca[...] = _ring_place(a, S, W)
+                    cb[...] = _ring_place(b, S, W)
+                ckv = att.cross_kv(cp["attn"], src, spec)
+                cache["cross_k"][s], cache["cross_v"][s] = ckv
+                x = _cross_block(cp, x, ckv, cfg)
+        elif cfg.family == "audio":
+            spec = AttnSpec.from_cfg(cfg)
+            for i, (lp, ca, cb) in enumerate(self._attn_layers(cache)):
+                ckv = att.cross_kv(lp["cross"], src, spec)
+                cache["cross_k"][i], cache["cross_v"][i] = ckv
+                x, (a, b) = _block_forward_cross(lp, x, positions, ckv, cfg,
+                                                 window=window)
                 ca[...] = _ring_place(a, S, W)
                 cb[...] = _ring_place(b, S, W)
         elif cfg.family == "ssm":
@@ -322,12 +497,30 @@ class Model(nn.Module):
         cfg = self.cfg
         pos = int(cache["pos"])
         x = self.embed[self._tokens(tokens)]
-        if cfg.family in ("dense", "moe"):
-            W = cache["latent" if cfg.mla is not None else "k"].shape[2]
+        if cfg.family in ("dense", "moe", "vlm", "audio"):
+            W = cache["latent"].shape[2] if cfg.mla is not None else \
+                cache["k"].shape[-3]
             window = W if cfg.long_context == "sliding_window" and \
                 W == cfg.sliding_window else 0
+        if cfg.family in ("dense", "moe"):
             for lp, ca, cb in self._attn_layers(cache):
                 x = _block_decode(lp, x, pos, ca, cb, cfg, window=window)
+        elif cfg.family == "vlm":
+            layers = self._attn_layers(cache)
+            n = self.per - 1
+            for s, cp in enumerate(self.cross_blocks):
+                for lp, ca, cb in layers[s * n:(s + 1) * n]:
+                    x = _block_decode(lp, x, pos, ca, cb, cfg, window=window)
+                x = _cross_block(cp, x, (cache["cross_k"][s],
+                                         cache["cross_v"][s]), cfg)
+        elif cfg.family == "audio":
+            spec = AttnSpec.from_cfg(cfg)
+            for i, (lp, ca, cb) in enumerate(self._attn_layers(cache)):
+                h = apply_norm(lp["norm1"], x, cfg.norm)
+                a, _ = att.attention_decode(lp["attn"], h, pos, ca, cb, spec,
+                                            window=window)
+                x = _cross_ffn(lp, x + a, (cache["cross_k"][i],
+                                           cache["cross_v"][i]), cfg)
         elif cfg.family == "ssm":
             for lp, caches in self._mamba_layers(cache):
                 x = _mamba_step(lp, x, caches, cfg, decode=True)

@@ -3,7 +3,9 @@ model.  Requests are left-padded with token 0 to a common prompt length
 (pad tokens are attended and scanned, as in the reference), prefilled
 once, then decoded greedily (or by temperature sampling) to their
 per-request stop length with a shared cache: the provider-side serving
-loop that a federation sits on top of.
+loop that a federation sits on top of.  ``extra_inputs`` carries the
+vlm's ``image_embeds`` or the audio arch's ``audio_frames``; where a
+batch has none, zeros stand in, as in the reference.
 
 Runs on the GPU unless ``device="cpu"`` is passed; without a GPU it
 raises.  Float32 matrix products are pinned to full float32 (no TF32) on
@@ -74,11 +76,30 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def serve(self, requests: List[Request], *, seed: int = 0
-              ) -> List[Completion]:
+    def _batch(self, requests: List[Request],
+               extra_inputs: Optional[dict]) -> Dict[str, torch.Tensor]:
+        """Tokens and ``extra_inputs`` on the device, with zero
+        ``image_embeds``/``audio_frames`` where a vlm/audio batch has
+        none."""
+        cfg, dev = self.cfg, self.device
+        batch = {"tokens": torch.from_numpy(self._pad_batch(requests)).to(dev)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = torch.as_tensor(v, device=dev)
+        B = len(requests)
+        if cfg.family == "vlm" and "image_embeds" not in batch:
+            batch["image_embeds"] = torch.zeros(
+                (B, cfg.num_image_tokens, cfg.d_vision), device=dev)
+        if cfg.family == "audio" and "audio_frames" not in batch:
+            batch["audio_frames"] = torch.zeros(
+                (B, cfg.num_audio_frames, cfg.d_model), device=dev)
+        return batch
+
+    def serve(self, requests: List[Request], *, seed: int = 0,
+              extra_inputs: Optional[dict] = None) -> List[Completion]:
         t0 = time.perf_counter()
-        toks = torch.from_numpy(self._pad_batch(requests)).to(self.device)
-        logits, cache = self.model.prefill({"tokens": toks}, self.max_len)
+        batch = self._batch(requests, extra_inputs)
+        toks = batch["tokens"]
+        logits, cache = self.model.prefill(batch, self.max_len)
         self._sync()
         t1 = time.perf_counter()
         gen = torch.Generator(device=self.device)

@@ -165,7 +165,7 @@ def flash_case(dev, S, H, K, hd, causal, window, seed):
 @pytest.mark.parametrize("S,H,K,hd,causal,window", [
     (1, 2, 2, 64, True, 0), (7, 4, 2, 80, True, 0), (33, 4, 4, 64, False, 0),
     (130, 4, 1, 80, True, 8), (1000, 2, 2, 80, True, 64),
-    (257, 2, 2, 128, False, 0)])
+    (257, 2, 2, 128, False, 0), (300, 32, 8, 128, True, 0)])
 def test_flash_kernel_matches_plain(dev, S, H, K, hd, causal, window):
     flash_case(dev, S, H, K, hd, causal, window, seed=S)
 
@@ -395,6 +395,51 @@ def test_reduced_dense_and_ssm_archs_on_the_card_match_the_cpu(dev, arch):
         assert float((cg[key].cpu() - cc[key]).abs().max()) < 1e-4, key
     if not ssm:
         assert cc["k"].shape[2] == 64
+
+
+@pytest.mark.parametrize("arch,launches", [("llama-3.2-vision-11b", 1),
+                                          ("seamless-m4t-medium", 4)])
+def test_reduced_vlm_and_audio_on_the_card_match_the_cpu(dev, arch,
+                                                         launches):
+    """The reduced vlm (a self block, then the gated cross layer) and
+    audio arch (2 non-causal encoder blocks, 2 decoder blocks with
+    cross-attention), every all-zero parameter (gates, biases, layernorm
+    shifts) set to noise so the cross path is live, modality inputs from
+    ``data/pipeline``: prefill of 64 tokens at max_len 100 (flash 1 and 4
+    launches) and six greedy decode steps, card against CPU."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.model import MODALITY, Model
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    cfg = get_arch(arch).reduced()
+    gpu = Model(cfg, device=dev, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    with torch.no_grad():
+        for p in gpu.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.5, generator=gen)
+    cpu = Model(cfg, device="cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    b = next(synthetic_lm_batches(cfg, 3, 64, seed=2))
+    key = MODALITY[cfg.family]
+    batch = {"tokens": torch.from_numpy(b["tokens"]),
+             key: torch.from_numpy(b[key])}
+    f0 = fa.LAUNCHES
+    lg, cg = gpu.prefill(batch, 100)
+    assert fa.LAUNCHES - f0 == launches
+    lc, cc = cpu.prefill(batch, 100)
+    assert float((lg.cpu() - lc).abs().max()) < 1e-4
+    zero = dict(batch, **{key: torch.zeros_like(batch[key])})
+    assert float((cpu.prefill(zero, 100)[0] - lc).abs().max()) > 1e-3
+    for _ in range(6):
+        cur = lc.argmax(-1)[:, None]
+        lg, cg = gpu.decode_step(cg, cur)
+        lc, cc = cpu.decode_step(cc, cur)
+        assert float((lg.cpu() - lc).abs().max()) < 1e-4
+    for k in ("k", "v", "cross_k", "cross_v"):
+        assert float((cg[k].cpu() - cc[k]).abs().max()) < 1e-4, k
 
 
 def test_one_moe_layer_on_the_card_matches_the_cpu(dev):

@@ -39,6 +39,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
               "repro_torch.configs.zamba2_2_7b",
+              "repro_torch.configs.llama_3_2_vision_11b",
+              "repro_torch.configs.seamless_m4t_medium",
+              "repro_torch.data.pipeline",
               "repro_torch.serving.async_service",
               "repro_torch.serving.transports",
               "repro_torch.serving.mp_shards",
@@ -329,8 +332,10 @@ def test_lm_serve_cli_raises_without_gpu_and_runs_on_cpu():
 
 def test_lm_serve_cli_serves_a_dense_arch_and_refuses_unported_ones():
     """``--arch qwen1.5-0.5b`` (dense, tied embeddings, no SSM: any prompt
-    length) runs on the CPU when asked and raises without a GPU;
-    ``seamless-m4t-medium`` (audio) is not ported."""
+    length) runs on the CPU when asked and raises without a GPU; no arch
+    is left unported: ``seamless-m4t-medium`` (audio) and
+    ``llama-3.2-vision-11b`` (vlm), with the engine's zero frames or image
+    embeddings, serve their reduced configs on the CPU."""
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
             "qwen1.5-0.5b", "--requests", "3", "--prompt-len", "40",
@@ -343,8 +348,11 @@ def test_lm_serve_cli_serves_a_dense_arch_and_refuses_unported_ones():
                          capture_output=True, text=True, timeout=120)
     assert cpu.returncode == 0, cpu.stderr
     assert "qwen1.5-0.5b (reduced" in cpu.stdout and "12 tokens" in cpu.stdout
-    audio = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "seamless-m4t-medium", "--device", "cpu"], env=env,
-        capture_output=True, text=True, timeout=120)
-    assert audio.returncode != 0 and "not ported yet" in audio.stderr
+    for arch in ("seamless-m4t-medium", "llama-3.2-vision-11b"):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             arch, "--device", "cpu"], env=env, capture_output=True,
+            text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert f"{arch} (reduced" in out.stdout
+        assert "not ported yet" not in out.stdout + out.stderr

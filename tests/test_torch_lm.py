@@ -84,12 +84,13 @@ def test_config_copy_matches_the_reference():
         assert dataclasses.asdict(jc) == dataclasses.asdict(pc)
         assert jc.param_count() == pc.param_count()
     assert get_arch(ARCH).param_count() == 2_422_347_200      # 2.42 B
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("llama-3.2-vision-11b")
+    # every arch is ported: the vlm's config is the reference's
+    assert dataclasses.asdict(get_arch("llama-3.2-vision-11b")) == \
+        dataclasses.asdict(jax_get_arch("llama-3.2-vision-11b"))
     with pytest.raises(KeyError):
         get_arch("gpt-5")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(dataclasses.replace(get_arch(ARCH).reduced(), family="vlm"),
+    with pytest.raises(ValueError, match="unknown model family"):
+        Model(dataclasses.replace(get_arch(ARCH).reduced(), family="video"),
               device="cpu")
 
 
