@@ -56,7 +56,7 @@ Phases, each fatal on failure (no result line is printed then):
                one SAC epoch with a host-mode ``DeviceReplayBuffer`` (rows
                gathered on the card) bit-equal to the numpy buffer's run,
                then collect + update timed for the numpy buffer and the
-               torch-index mode; then one TD3 epoch; and one tab2 flush
+               torch-index mode; then one TD3 epoch of 400 env steps; and one tab2 flush
                served with an ``Obs`` serving log, bit-equal to the flush
                without, one record per request.  The ``[train]`` lines
                give those launches, env steps/s, ms per gradient step
@@ -161,7 +161,25 @@ Phases, each fatal on failure (no result line is printed then):
                deepseek's MLA + MoE block, a mamba2 block, stablelm's
                hd-160 block, llama's cross layer, seamless's encoder and
                decoder blocks), router top-k compared first, a flip allowed
-               only at a near tie (``[lm-layer:<arch>]`` lines).
+               only at a near tie (``[lm-layer:<arch>]`` lines);
+ 11. lm train — ``training.train_step`` on the card: every arch at
+               ``reduced()`` (2 x 64 tokens; the vlm's and audio arch's
+               all-zero tensors drawn as noise) through ``loss_and_grads``
+               and one ``make_train_step`` step, held to the same on the
+               CPU (loss, aux, grad norm, every gradient; MoE router ids
+               compared first, a flip reported and the arch not held);
+               the flash and SSD ``autograd.Function``s (kernel forward,
+               backward by recomputing the plain version) against the
+               plain version's autograd at qwen1.5-0.5b's (8, 1024, 16, 64)
+               and mamba2-370m's (8, 1024, 32, 64, N=128) shapes, timed
+               there; then qwen1.5-0.5b (flash) and mamba2-370m (SSD) at
+               full width and depth, 20 steps of 8 x 1024 synthetic tokens
+               with remat (flash and SSD launched twice a layer a step),
+               qwen's first step's loss equal with ``remat=False``, the
+               loss required to fall and the grad norm finite, one step
+               profiled by group (GEMM, flash and SSD forward, the plain
+               backward recompute, other) (``[lm-train:*]`` lines: ms a
+               step, tokens/s, MFU, peak MiB, launches a step).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -179,10 +197,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-F32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
-TF32_FLOPS = 495e12            # H100 SXM TF32 tensor-core rate (dense); a
-                               # 3xTF32 product costs three TF32 products
+# The card's peaks are read from the port's roofline (``peaks()``,
+# ``repro_torch.roofline.analysis.HW``): memory rate, float32 rate outside
+# the tensor cores, TF32 tensor-core rate (a 3xTF32 product costs three
+# TF32 products).
 FLASH_SOFTMAX_FLOPS = 5        # per visible pair: scale, max, sub, exp, sum
 IOU_FLOPS_PER_PAIR = 20        # 4 max/min, 2 areas, inter, union, div
 
@@ -216,6 +234,12 @@ LM_ARCH = "zamba2-2.7b"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def peaks():
+    """The H100's published peaks: ``repro_torch.roofline.analysis.HW``."""
+    from repro_torch.roofline.analysis import HW
+    return HW()
 
 
 def cuda_ms(fn, *, reps: int = 30, inner: int = 20, warmup: int = 5
@@ -387,14 +411,15 @@ def time_iou_kernel(boxes_list, dev) -> dict:
     lengths = [len(b) for b in boxes_list]
     B, nmax, total = len(lengths), max(lengths), args[-1]
     nbytes = 16 * sum(lengths) + 4 * total + 2 * 8 * (B + 1)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = total * IOU_FLOPS_PER_PAIR / F32_FLOPS * 1e3
+    hw = peaks()
+    bytes_ms = nbytes / hw.hbm_bw * 1e3
+    ops_ms = total * IOU_FLOPS_PER_PAIR / hw.peak_flops * 1e3
     padded_bytes = B * (2 * nmax * 16 + nmax * nmax * 4)
     return {"shape": [B, nmax, total], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "padded_bytes": padded_bytes,
-            "padded_bound_ms": padded_bytes / HBM_BYTES_PER_S * 1e3,
+            "padded_bound_ms": padded_bytes / hw.hbm_bw * 1e3,
             "per_thread": k}
 
 
@@ -1019,15 +1044,8 @@ def flash_at_serving_shape(run: dict, dev) -> dict:
             qt, kt, vt, is_causal=causal, **gqa), reps=10, inner=10,
             warmup=3)
     device_ms, per_call, _ = kernel_device_ms_of(kernel, "flash_attention_")
-    i = torch.arange(S, device=dev)[:, None]
-    j = torch.arange(S, device=dev)[None, :]
-    vis = torch.ones((S, S), dtype=torch.bool, device=dev)
-    if causal:
-        vis &= j <= i
-    if window:
-        vis &= (i - j) < window
-    pairs = B * H * int(vis.sum())
-    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    pairs = B * H * ops.visible_pairs(S, causal, window)
+    nbytes = ops.launch_cost(B, S, H, K, hd, causal, window)[1]
     return bound_entry(ms, plain_ms, lib_ms, device_ms, per_call,
                        pairs * 4 * hd, pairs * FLASH_SOFTMAX_FLOPS,
                        pairs * 4 * hd, nbytes, [B, S, H, hd], err)
@@ -1085,12 +1103,9 @@ def ssd_at_serving_shape(run: dict, dev) -> dict:
     log("[lm] ssd_scan device ms per call by CUDA kernel: " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(by_kernel.items(),
                                           key=lambda kv: -kv[1])))
-    tri = Q * (Q + 1) // 2
-    mma_flops = (B * NC * tri * 2 * N
-                 + B * nh * NC * (tri * 2 * hd + 4 * Q * N * hd))
-    nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * N
-                  + B * nh * hd * N * (2 if init is not None else 1))
-    weighting = B * nh * NC * tri * 2
+    weighting = B * nh * NC * (Q * (Q + 1) // 2) * 2
+    flops, nbytes = ops.launch_cost(B, S, nh, hd, N, Q, init is not None)
+    mma_flops = flops - weighting
     entry = bound_entry(ms, plain_ms, None, device_ms, per_call, mma_flops,
                         weighting, mma_flops + weighting, nbytes,
                         [B, S, nh, hd, N], errs[0][0])
@@ -1103,13 +1118,15 @@ def bound_entry(ms, plain_ms, lib_ms, device_ms, per_call, mma_flops,
     """Bounds of a kernel whose products (``mma_flops``) run in 3xTF32 on
     the tensor cores and the rest (``other_flops``) on the CUDA cores:
     ``bound_ms`` is the larger of the bytes over the memory rate and
-    3 * mma_flops / TF32_FLOPS + other_flops / F32_FLOPS;
+    3 * mma_flops / tf32 + other_flops / f32 (``peaks()``);
     ``bound_f32_cuda_core_ms`` counts ``f32_flops`` (every product and the
     weighting, no softmax) at the CUDA-core rate, the bound of the design
     it replaced."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (3 * mma_flops / TF32_FLOPS + other_flops / F32_FLOPS) * 1e3
-    f32_ms = max(bytes_ms, f32_flops / F32_FLOPS * 1e3)
+    hw = peaks()
+    bytes_ms = nbytes / hw.hbm_bw * 1e3
+    ops_ms = (3 * mma_flops / hw.tf32_flops
+              + other_flops / hw.peak_flops) * 1e3
+    f32_ms = max(bytes_ms, f32_flops / hw.peak_flops * 1e3)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "device_ms": device_ms, "cuda_launches_per_call": per_call,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -1533,6 +1550,428 @@ def families_phase(dev) -> dict:
             "layers": layers, "launches": launches, "flash_errs": flash_errs}
 
 # ---------------------------------------------------------------------------
+# phase 11: LM training on the card
+# ---------------------------------------------------------------------------
+
+# Reduced archs, one train step card vs CPU (float32 both, TF32 off): the
+# loss and grad norm within TRAIN_LOSS_RTOL of the CPU's, every gradient
+# tensor within TRAIN_GRAD_RTOL of its largest CPU entry (cuBLAS, the
+# CPU's BLAS and the kernels' 3xTF32 products sum in other orders, and
+# the backward carries that through two layers and the unembedding), or
+# of GRAD_FLOOR times the largest entry of all where that is larger: a
+# gradient that is zero in exact arithmetic (a key bias: shifting every
+# key alike leaves the softmax unchanged) is rounding noise on both.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+GRAD_FLOOR = 1e-3
+# The kernels' Functions against the plain version's autograd on the card
+# at a training shape: the forward within FLASH_ATOL / SSD_RTOL as above;
+# the gradients come from the same plain arithmetic on both sides (the
+# backward recomputes it), so within KERNEL_GRAD_RTOL of max |grad|.
+KERNEL_GRAD_RTOL = 1e-6
+# Full width and depth: 8 x 1024 tokens of the synthetic pipeline, the
+# reference's lr and decay, a short warmup, remat on.  The loss must fall:
+# the mean of the last 3 steps' below the first step's by LOSS_DROP.
+LM_TRAIN = dict(batch=8, seq=1024, steps=20, peak_lr=3e-4, warmup_steps=5)
+LM_TRAIN_ARCHS = ("qwen1.5-0.5b", "mamba2-370m")
+LOSS_DROP = 0.05
+REMAT_LOSS_RTOL = 1e-6  # the remat=False step's loss (the same arithmetic)
+GRAD_SHAPES = {"flash_attention": (8, 1024, 16, 16, 64),  # qwen1.5-0.5b
+               "ssd_scan": (8, 1024, 32, 64, 128, 256)}  # mamba2-370m
+
+
+class RouteLog:
+    """Records the expert ids of every ``models/moe.py`` ``route`` call."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.ids = moe, moe.route, []
+
+        def spy(probs, K, C):
+            out = self.orig(probs, K, C)
+            self.ids.append(out[1].detach().cpu())
+            return out
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def rel_err(got, want, floor: float = 1e-30) -> float:
+    """max |got - want| over max |want| or ``floor``, the larger (of
+    tensors on any device)."""
+    want = want.detach().cpu()
+    scale = max(float(want.abs().max()), floor)
+    return float((got.detach().cpu() - want).abs().max()) / scale
+
+
+def reduced_step_vs_cpu(arch: str, dev) -> dict:
+    """One reduced arch: gradients and one ``make_train_step`` step on the
+    card and on the CPU from the same weights (the vlm's and audio arch's
+    all-zero tensors drawn as noise, so the cross path is live) and the
+    same batch (2 x 64 tokens, modality inputs from ``data/pipeline``).
+    MoE archs: the router's expert ids compared first; with a flip the
+    gradients are reported, not held."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.models.model import MODALITY, Model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.training.train_step import (TrainState, loss_and_grads,
+                                                 make_train_step)
+
+    cfg = get_arch(arch).reduced()
+    cpu = Model(cfg, device="cpu", seed=11)
+    if cfg.family in MODALITY:
+        gen = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                if not p.any():
+                    p.normal_(0.0, 0.5, generator=gen)
+    gpu = Model(cfg, device=dev, init=False)
+    gpu.load_state_dict(cpu.state_dict())
+    b = next(synthetic_lm_batches(cfg, 2, 64, seed=5))
+    bc = {k: torch.from_numpy(v) for k, v in b.items()}
+    bg = {k: v.to(dev) for k, v in bc.items()}
+    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    with RouteLog() as rg:
+        gg, lg, ag = loss_and_grads(gpu, bg)
+    launches = {"flash_attention": fa.LAUNCHES - f0,
+                "ssd_scan": sd.LAUNCHES - s0}
+    with RouteLog() as rc:
+        gc_, lc, ac = loss_and_grads(cpu, bc)
+    flips = sum(int((a != c).any(-1).sum()) for a, c in zip(rg.ids, rc.ids))
+    floor = GRAD_FLOOR * max(float(c.abs().max()) for c in gc_)
+    out = {"arch": arch, "launches": launches, "router_flips": flips,
+           "loss_rel_err": abs(float(lg) - float(lc)) / abs(float(lc)),
+           "aux_abs_err": abs(float(ag) - float(ac)),
+           "grad_max_rel_err": max(rel_err(g, c, floor)
+                                   for g, c in zip(gg, gc_))}
+    metrics = []
+    for model, batch in ((gpu, bg), (cpu, bc)):
+        state = TrainState(model, adamw_init(model.parameters()))
+        step = make_train_step(model, peak_lr=1e-3, warmup_steps=1,
+                               total_steps=10)
+        metrics.append(step(state, batch)[1])
+    mg, mc = metrics
+    out["step_loss_rel_err"] = abs(float(mg["loss"]) - float(mc["loss"])) \
+        / abs(float(mc["loss"]))
+    out["grad_norm_rel_err"] = abs(float(mg["grad_norm"])
+                                   - float(mc["grad_norm"])) \
+        / float(mc["grad_norm"])
+    finite = all(bool(torch.isfinite(g).all()) for g in gg) and \
+        all(bool(torch.isfinite(p).all()) for p in gpu.parameters())
+    log(f"[lm-train:{arch}:reduced] card vs CPU: {json.dumps(out)}")
+    want_attn = cfg.family not in ("ssm",) and cfg.mla is None
+    want_ssd = cfg.family in ("ssm", "hybrid")
+    if not finite or bool(launches["flash_attention"]) != want_attn or \
+            bool(launches["ssd_scan"]) != want_ssd:
+        raise AssertionError(f"{arch}: finite {finite}, launches "
+                             f"{launches}")
+    if flips:
+        log(f"[lm-train:{arch}:reduced] {flips} router flips between card "
+            f"and CPU: gradients reported, not held")
+        return out
+    if not (out["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and out["step_loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and out["grad_norm_rel_err"] <= TRAIN_LOSS_RTOL
+            and out["aux_abs_err"] <= TRAIN_LOSS_RTOL
+            and out["grad_max_rel_err"] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"{arch}: the reduced train step differs "
+                             f"between card and CPU: {out}")
+    return out
+
+
+def kernel_grads_at_training_shape(dev) -> dict:
+    """The flash and SSD Functions (kernel forward, plain recompute
+    backward) against the plain version's autograd on the card, at
+    qwen1.5-0.5b's and mamba2-370m's training shapes, with gradients of
+    every input (the SSD's through y and the final state); then the
+    kernel's forward, the Function's backward and the plain version's
+    forward and backward timed there, beside the forward's bound (as in
+    ``bound_entry``) and, for flash, ``scaled_dot_product_attention``'s
+    forward (a yardstick the port never calls)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rand(*shape, scale=1.0, req=True):
+        t = torch.randn(shape, generator=gen, device=dev) * scale
+        return t.requires_grad_(req)
+    out = {}
+    B, S, H, K, hd = GRAD_SHAPES["flash_attention"]
+    q, k, v = rand(B, S, H, hd), rand(B, S, K, hd), rand(B, S, K, hd)
+    dout = rand(B, S, H, hd, req=False)
+    f0 = fa.LAUNCHES
+    y = fa.flash_attention(q, k, v)
+    got = torch.autograd.grad(y, (q, k, v), dout, retain_graph=True)
+    want_y = flash_attention_torch(q, k, v)
+    want = torch.autograd.grad(want_y, (q, k, v), dout, retain_graph=True)
+    torch.cuda.synchronize()
+    out["flash_attention"] = {
+        "shape": [B, S, H, K, hd], "launches": fa.LAUNCHES - f0,
+        "out_max_abs_err": float((y - want_y).detach().abs().max()),
+        "grad_max_rel_err": max(rel_err(g, w) for g, w in zip(got, want)),
+        "fwd_ms": cuda_ms(lambda: fa._launch(q.detach(), k.detach(),
+                                             v.detach(), True, 0),
+                          reps=5, inner=5, warmup=2),
+        "bwd_recompute_ms": cuda_ms(lambda: torch.autograd.grad(
+            y, (q, k, v), dout, retain_graph=True), reps=3, inner=2,
+            warmup=1),
+        "plain_fwd_ms": cuda_ms(lambda: flash_attention_torch(
+            q.detach(), k.detach(), v.detach()), reps=3, inner=2, warmup=1),
+        "plain_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+            want_y, (q, k, v), dout, retain_graph=True), reps=3, inner=2,
+            warmup=1)}
+    del y, want_y, got, want, q, k, v, dout
+    B, S, nh, hd, N, Q = GRAD_SHAPES["ssd_scan"]
+    x = rand(B, S, nh, hd)
+    dt = (torch.rand((B, S, nh), generator=gen, device=dev) * 0.1
+          + 0.01).requires_grad_()
+    A = -(torch.rand((nh,), generator=gen, device=dev) + 0.5)
+    A.requires_grad_()
+    Bm, Cm = rand(B, S, N, scale=0.3), rand(B, S, N, scale=0.3)
+    dy = rand(B, S, nh, hd, req=False)
+    dfin = rand(B, nh, hd, N, req=False)
+    ins = (x, dt, A, Bm, Cm)
+    s0 = sd.LAUNCHES
+    ys = sd.ssd_scan(*ins, Q)
+    got = torch.autograd.grad(ys, ins, (dy, dfin), retain_graph=True)
+    want_s = ssd_chunked(*ins, Q)
+    want = torch.autograd.grad(want_s, ins, (dy, dfin), retain_graph=True)
+    torch.cuda.synchronize()
+    out["ssd_scan"] = {
+        "shape": [B, S, nh, hd, N], "chunk": Q, "launches": sd.LAUNCHES - s0,
+        "out_max_rel_err": max(rel_err(a, b) for a, b in zip(ys, want_s)),
+        "grad_max_rel_err": max(rel_err(g, w) for g, w in zip(got, want)),
+        "fwd_ms": cuda_ms(lambda: sd._launch(*(t.detach() for t in ins), Q,
+                                             None), reps=5, inner=5,
+                          warmup=2),
+        "bwd_recompute_ms": cuda_ms(lambda: torch.autograd.grad(
+            ys, ins, (dy, dfin), retain_graph=True), reps=3, inner=2,
+            warmup=1),
+        "plain_fwd_ms": cuda_ms(lambda: ssd_chunked(
+            *(t.detach() for t in ins), Q), reps=3, inner=2, warmup=1),
+        "plain_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+            want_s, ins, (dy, dfin), retain_graph=True), reps=3, inner=2,
+            warmup=1)}
+    del ys, want_s, got, want
+    hw = peaks()
+    weighting = B * nh * (S // Q) * (Q * (Q + 1) // 2) * 2
+    flops, nbytes = sd.launch_cost(B, S, nh, hd, N, Q, False)
+    out["ssd_scan"].update(bound_ms=1e3 * max(
+        nbytes / hw.hbm_bw, 3 * (flops - weighting) / hw.tf32_flops
+        + weighting / hw.peak_flops), library_ms=None)
+    B, S, H, K, hd = GRAD_SHAPES["flash_attention"]
+    pairs = B * H * fa.visible_pairs(S, True, 0)
+    nbytes = fa.launch_cost(B, S, H, K, hd, True, 0)[1]
+    qt = torch.randn((B, H, S, hd), generator=gen, device=dev)
+    out["flash_attention"].update(bound_ms=1e3 * max(
+        nbytes / hw.hbm_bw, 3 * pairs * 4 * hd / hw.tf32_flops
+        + pairs * fa.SOFTMAX_FLOPS / hw.peak_flops),
+        library_ms=cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qt, qt, qt,
+                                                         is_causal=True),
+                           reps=5, inner=5, warmup=2))
+    del qt
+    log(f"[lm-train:kernel-grads] {json.dumps(out)}")
+    fo, so = out["flash_attention"], out["ssd_scan"]
+    if not (fo["launches"] == 1 and so["launches"] == 1
+            and fo["out_max_abs_err"] <= FLASH_ATOL
+            and so["out_max_rel_err"] <= SSD_RTOL
+            and fo["grad_max_rel_err"] <= KERNEL_GRAD_RTOL
+            and so["grad_max_rel_err"] <= KERNEL_GRAD_RTOL):
+        raise AssertionError(f"kernel gradients off at the training "
+                             f"shapes: {out}")
+    return out
+
+
+def train_breakdown(step_fn, state, batch) -> dict:
+    """One train step under ``torch.profiler``: device ms by group (GEMM,
+    the flash and SSD kernels' forward, the backward's recompute of their
+    plain versions, other), the groups' kernels under the recompute ranges
+    (``BACKWARD_RANGE`` of the two wrappers) moved to the recompute's, and
+    the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+
+    ranges = (fa.BACKWARD_RANGE, sd.BACKWARD_RANGE)
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def group(name: str) -> str:
+        name = name.lower()
+        if "flash_attention_" in name:
+            return "flash_fwd"
+        if "ssd_scan_" in name:
+            return "ssd_fwd"
+        if "gemm" in name or "cutlass" in name:
+            return "gemm"
+        return "other"
+
+    def walk(ev):
+        yield from ev.kernels
+        for ch in ev.cpu_children:
+            yield from walk(ch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us = dict.fromkeys(("gemm", "flash_fwd", "ssd_fwd", "other"), 0.0)
+    n_kernels = 0
+    for e in prof.key_averages():
+        if e.device_type == cuda and e.key not in ranges:
+            us[group(e.key)] += _device_us([e])
+            n_kernels += e.count
+    rec = dict.fromkeys(us, 0.0)
+    for ev in prof.events():
+        if ev.name in ranges and ev.device_type != cuda:
+            for kern in walk(ev):
+                rec[group(kern.name)] += kern.duration
+    busy = sum(us.values())
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / 1e6 / wall if busy else None,
+           "kernels": n_kernels,
+           "backward_recompute_ms": sum(rec.values()) / 1e3,
+           "backward_recompute_gemm_ms": rec["gemm"] / 1e3,
+           **{f"{k}_ms": (v - rec[k]) / 1e3 for k, v in us.items()}}
+    if busy <= 0 or (state.model.cfg.family != "ssm" and not us["flash_fwd"]):
+        raise AssertionError(f"the profiler shows no device time: {out}")
+    return out
+
+
+def train_full(arch: str, dev) -> dict:
+    """``arch`` at full width and depth through ``init_train_state`` and
+    ``make_train_step`` (remat) for LM_TRAIN's steps on the synthetic
+    pipeline's batches (made before the clock starts): ms a step, tokens/s,
+    MFU (``model_flops(train=True)`` over the median step time and
+    ``HW.peak_flops``), peak MiB, flash/SSD launches a step (counters
+    zeroed before each step, read after); the loss must fall and the grad
+    norm stay finite (it is finite only where every gradient is); qwen
+    first checks one step's loss with ``remat=False`` against the remat
+    run's first; then one more step under the profiler."""
+    import gc
+    import math
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.roofline.analysis import HW, model_flops
+    from repro_torch.training.train_step import (init_train_state,
+                                                 loss_and_grads,
+                                                 make_train_step)
+
+    cfg = get_arch(arch)
+    run = LM_TRAIN
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(cfg, seed=0, device=dev)
+    data = synthetic_lm_batches(cfg, run["batch"], run["seq"], seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+               for _ in range(run["steps"] + 1)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params)
+    no_remat = peak_no_remat = None
+    if arch == "qwen1.5-0.5b":
+        grads, loss, _ = loss_and_grads(state.model, batches[0])
+        no_remat = float(loss)
+        del grads
+        gc.collect()
+        peak_no_remat = torch.cuda.max_memory_allocated(dev) / 2**20
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    step_fn = make_train_step(state.model, peak_lr=run["peak_lr"],
+                              warmup_steps=run["warmup_steps"],
+                              total_steps=run["steps"], remat=True)
+    losses, norms, ms, launches = [], [], [], []
+    for i in range(run["steps"]):
+        fa.reset_launches()
+        sd.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        launches.append({"flash_attention": fa.LAUNCHES,
+                         "ssd_scan": sd.LAUNCHES})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    tokens = run["batch"] * run["seq"]
+    step_ms = statistics.median(ms[1:])
+    out = {"arch": arch, "params": n_params, "tokens_per_step": tokens,
+           "steps": run["steps"], "remat": True, "setup_s": setup_s,
+           "first_step_ms": ms[0], "ms_per_step": step_ms,
+           "ms_per_step_all": ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "mfu": model_flops(cfg, tokens, train=True)
+           / (step_ms / 1e3) / HW().peak_flops,
+           "model_flops_per_step": model_flops(cfg, tokens, train=True),
+           "peak_mib": peak, "peak_mib_no_remat_step": peak_no_remat,
+           "launches_per_step": launches[-1],
+           "losses": losses, "grad_norms": norms,
+           "loss_no_remat_step0": no_remat}
+    fell = statistics.mean(losses[-3:]) < losses[0] - LOSS_DROP
+    finite = all(math.isfinite(v) for v in losses + norms) and \
+        all(bool(torch.isfinite(p).all()) for p in state.params)
+    want = {"flash_attention": 2 * (cfg.num_layers if cfg.family == "dense"
+                                    else 0),
+            "ssd_scan": 2 * (cfg.num_layers if cfg.family == "ssm" else 0)}
+    remat_ok = no_remat is None or \
+        abs(no_remat - losses[0]) <= REMAT_LOSS_RTOL * abs(losses[0])
+    out["breakdown"] = train_breakdown(step_fn, state, batches[-1])
+    log(f"[lm-train:{arch}] {json.dumps(out)}")
+    if not (fell and finite and remat_ok
+            and all(n == want for n in launches)):
+        raise AssertionError(f"{arch}: training at full width: loss fell "
+                             f"{fell}, finite {finite}, remat=False loss "
+                             f"{no_remat} vs {losses[0]}, launches "
+                             f"{launches[-1]} (want {want} every step)")
+    del state, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_phase(dev) -> dict:
+    """Phase 11: every arch reduced, one train step card vs CPU; the
+    kernels' gradients at the training shapes; qwen1.5-0.5b and
+    mamba2-370m trained at full width and depth."""
+    import torch
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    t_phase = time.perf_counter()
+    reduced = {arch: reduced_step_vs_cpu(arch, dev) for arch in ARCH_IDS}
+    torch.cuda.empty_cache()
+    grads = kernel_grads_at_training_shape(dev)
+    torch.cuda.empty_cache()
+    full = {arch: train_full(arch, dev) for arch in LM_TRAIN_ARCHS}
+    launches = {k: {f"{a}:reduced": r["launches"][k]
+                    for a, r in reduced.items()}
+                for k in ("flash_attention", "ssd_scan")}
+    for k in launches:
+        for a, r in full.items():
+            launches[k][a] = r["launches_per_step"][k] * r["steps"]
+    wall = time.perf_counter() - t_phase
+    log(f"[lm-train] phase 11 in {wall:.1f}s")
+    return {"reduced": reduced, "kernel_grads": grads, "full": full,
+            "launches": launches, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: training Armol's selector
 # ---------------------------------------------------------------------------
 
@@ -1555,6 +1994,10 @@ REF_COST = (2.4793333333333334, 2.448, 2.376, 2.417333333333333, 2.25)
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_reference.py \
 #       --algo ppo --seeds 0 1 2 3 4
 PPO_TRAIN = dict(lanes=8, epochs=3, steps_per_epoch=1000)
+# The TD3 run is held to no band (a finite result and IoU launches): one
+# epoch cut to 400 env steps, two update blocks after update_after=300,
+# to keep the smoke inside its time limit.
+TD3_STEPS = 400
 REF_PPO_AP50 = (29.695863605853518, 40.09803004172767, 27.75792281077858,
                 33.3865385733132, 24.79293186851022)
 REF_PPO_COST = (2.191333333333333, 2.7786666666666666, 1.9093333333333333,
@@ -1821,16 +2264,18 @@ class Stopwatch:
         setattr(self.obj, self.name, self.orig)
 
 
-def train_run(env, algo: str, dev, epochs: int) -> dict:
-    """``run_off_policy`` at the TRAIN protocol: the IoU kernel's launches
-    zeroed just before and read just after, wall time split into
-    collect (acting and env steps), update (the update blocks) and
-    evaluate (the per-epoch test episodes)."""
+def train_run(env, algo: str, dev, epochs: int,
+              steps_per_epoch: int = TRAIN["steps_per_epoch"]) -> dict:
+    """``run_off_policy`` at the TRAIN protocol (``steps_per_epoch`` cut
+    for the TD3 run): the IoU kernel's launches zeroed just before and
+    read just after, wall time split into collect (acting and env steps),
+    update (the update blocks) and evaluate (the per-epoch test
+    episodes)."""
     import torch
     from repro_torch.core import loops
     from repro_torch.kernels.iou_matrix import ops
     agent = make_agent(algo, env, dev)
-    kw = dict(TRAIN, epochs=epochs)
+    kw = dict(TRAIN, epochs=epochs, steps_per_epoch=steps_per_epoch)
     with Stopwatch(agent, "update_block") as upd, \
             Stopwatch(loops, "evaluate_policy") as ev:
         ops.reset_launches()
@@ -2210,7 +2655,7 @@ def train_phase(served_env, dev) -> dict:
     replay = replay_phase(served_env, dev)
 
     td3 = train_run(training_env(served_env, TRAIN_SEED + 1, dev), "td3",
-                    dev, 1)
+                    dev, 1, TD3_STEPS)
     td3_last = td3["history"][-1]
     if not (math.isfinite(td3_last["ap50"])
             and math.isfinite(td3_last["cost"])):
@@ -3732,6 +4177,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam = families_phase(dev)
 
+    # 11. LM training: every arch reduced against the CPU, the kernels'
+    # gradients at training shapes, qwen1.5-0.5b and mamba2-370m trained
+    # at full width and depth
+    torch.cuda.empty_cache()
+    lmt = lm_train_phase(dev)
+
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
             or m.startswith("repro.")]
@@ -3792,9 +4243,12 @@ def main() -> int:
                          "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:24"
                          }[name],
             "launches": lm["launches"][name]
-            + sum(fam["launches"][name].values()),
+            + sum(fam["launches"][name].values())
+            + sum(lmt["launches"][name].values()),
             "launches_by_arch": {LM_ARCH: lm["launches"][name],
                                  **fam["launches"][name]},
+            "launches_train_lm": lmt["launches"][name],
+            "training": lmt["kernel_grads"][name],
             "max_abs_err": max([err, t["serving_max_abs_err"]] + (
                 list(fam["flash_errs"].values())
                 if name == "flash_attention" else

@@ -20,6 +20,7 @@ from repro_torch.core.networks import MLP, FeatureExtractor
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.training.train_step import TrainState
 
 
 def _t(x) -> torch.Tensor:
@@ -189,8 +190,8 @@ def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
     ``blocks.cross`` leaves ``(n_super,)`` and become
     ``model.cross_blocks[s]``.  Audio: ``enc_blocks`` (``(E,)``) and
     ``blocks`` (``(L,)``, with ``norm_x`` and ``cross``) like dense
-    blocks, ``enc_norm`` one tree.  ``unembed`` is absent with tied
-    embeddings.  Loads into ``model`` in place when given (its device is
+    blocks, ``enc_norm`` one tree.  ``unembed`` (absent with tied
+    embeddings) becomes ``model.unembed_weight``.  Loads into ``model`` in place when given (its device is
     kept), else builds a CPU model.  Raises on any key or shape that does
     not fit.
     """
@@ -213,7 +214,7 @@ def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
                          f"the {cfg.family} family's {sorted(want)}")
     for name in sorted({"embed", "unembed"} & want):
         arr = np.asarray(params[name])
-        dst = getattr(model, name)
+        dst = model.embed if name == "embed" else model.unembed_weight
         if arr.shape != tuple(dst.shape):
             raise ValueError(f"{name}: shape {arr.shape} does not fit "
                              f"{tuple(dst.shape)}")
@@ -262,3 +263,26 @@ def lm_params_from_jax(params: Mapping, cfg: ArchConfig,
         for i, block in enumerate(stack):
             _load_tree(block, params[key], (i,), f"{key}[{i}]")
     return model
+
+
+def train_state_from_jax(state: Any, cfg: ArchConfig,
+                         model: Optional[Model] = None) -> TrainState:
+    """The reference's LM ``TrainState(params, AdamWState(step, mu, nu))``
+    (numpy leaves, e.g. ``jax.tree.map(np.asarray, state)``) -> the port's
+    ``TrainState``: the params loaded into ``model`` (in place when given,
+    else a CPU model) by ``lm_params_from_jax``, and each moment pytree,
+    shaped like the params, laid out the same way in the order of
+    ``model.parameters()``; the step both as the device counter and as
+    its host mirror."""
+    model = lm_params_from_jax(_field(state, "params"), cfg, model)
+    jopt = _field(state, "opt")
+    moments = []
+    for name in ("mu", "nu"):
+        like = Model(cfg, device=model.device, init=False)
+        lm_params_from_jax(_field(jopt, name), cfg, like)
+        moments.append([p.detach() for p in like.parameters()])
+    step = int(np.asarray(_field(jopt, "step")))
+    opt = AdamWState(step=torch.tensor(step, dtype=torch.int32,
+                                       device=model.device),
+                     mu=moments[0], nu=moments[1])
+    return TrainState(model=model, opt=opt, step=step)

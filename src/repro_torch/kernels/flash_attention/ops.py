@@ -11,7 +11,17 @@ CPU tensor goes through the plain version (``ref.flash_attention_torch``),
 and only because it lies on the CPU.  Both paths check dtype (float32),
 shapes and contiguity first.  ``LAUNCHES`` counts kernel launches (one
 CUDA kernel per call: 3xTF32 products on the tensor cores, see
-``csrc/flash_attention.cu``).
+``csrc/flash_attention.cu``); ``FLOPS`` and ``BYTES`` add up the work of
+those launches from their shapes (``launch_cost``), for the roofline,
+which sees no ctypes launch (``roofline/measure.py``).
+
+Gradients: where q, k or v needs one (training), a CUDA call goes through
+``FlashAttention``, an ``autograd.Function`` whose forward is the kernel
+and whose backward recomputes the plain version on the saved q, k, v and
+differentiates it (the reference has no backward kernel either: it
+trains through the plain ``_sdpa``).  The forward never runs the plain
+version on the card.  A call that needs no gradient (serving, under
+``no_grad``) launches the kernel directly.
 """
 from __future__ import annotations
 
@@ -27,13 +37,37 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # head dims the kernel is instantiated for (csrc/flash_attention.cu)
 KERNEL_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 160)
 
+SOFTMAX_FLOPS = 5        # per visible pair: scale, max, sub, exp, sum
+BACKWARD_RANGE = "plain_flash_backward"   # profiler range of the backward
+
 LAUNCHES = 0
+FLOPS = 0                # of the launches counted in LAUNCHES
+BYTES = 0
 _LIB = None
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    """Zero ``LAUNCHES`` and the ``FLOPS``/``BYTES`` of those launches."""
+    global LAUNCHES, FLOPS, BYTES
+    LAUNCHES = FLOPS = BYTES = 0
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of one (batch, head) that the mask keeps."""
+    w = window if 0 < window < S else 0
+    if causal:
+        return S * (S + 1) // 2 if not w else w * (w + 1) // 2 + (S - w) * w
+    return S * S - ((S - w) * (S - w + 1) // 2 if w else 0)
+
+
+def launch_cost(B: int, S: int, H: int, K: int, hd: int, causal: bool,
+                window: int):
+    """(flops, bytes) of one launch: 4*hd flops per visible pair and head
+    (q.k and p.v) plus the softmax's, q, k, v read once and the output
+    written once."""
+    pairs = B * H * visible_pairs(S, causal, window)
+    return (pairs * (4 * hd + SOFTMAX_FLOPS),
+            4 * (2 * B * S * H * hd + 2 * B * S * K * hd))
 
 
 def _library() -> ctypes.CDLL:
@@ -78,8 +112,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{k.device}, {v.device}")
 
 
+def _kernel(q, k, v, out, causal: bool, window: int) -> None:
+    """One launch of the CUDA kernel on the current stream; raises on a
+    CUDA error."""
+    B, S, H, hd = q.shape
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, H, k.shape[2], hd, int(bool(causal)), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        msg = lib.flash_attention_error_string(err)
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: CUDA error {err} "
+            f"({msg.decode() if msg else 'unknown'})")
+
+
 def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, FLOPS, BYTES
     B, S, H, hd = q.shape
     K = k.shape[2]
     if hd not in KERNEL_HEAD_DIMS:
@@ -92,19 +143,42 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte "
                              f"copies)")
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, K, hd, int(bool(causal)), int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        msg = lib.flash_attention_error_string(err)
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {err} "
-            f"({msg.decode() if msg else 'unknown'})")
+    _kernel(q, k, v, out, causal, window)
     LAUNCHES += 1
+    flops, nbytes = launch_cost(B, S, H, K, hd, causal, window)
+    FLOPS += flops
+    BYTES += nbytes
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward with a backward by recompute: the plain
+    version on the saved q, k, v, differentiated by autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        # the range lets a profile read the recompute's device time apart
+        with torch.enable_grad(), \
+                torch.profiler.record_function(BACKWARD_RANGE):
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = flash_attention_torch(*ins, causal=ctx.causal,
+                                        window=ctx.window)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], grad_out))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -113,6 +187,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if q.device.type == "cuda":
+    if _on_card(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window)
         return _launch(q, k, v, causal, window)
     return flash_attention_torch(q, k, v, causal=causal, window=window)

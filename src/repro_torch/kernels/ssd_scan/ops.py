@@ -13,7 +13,18 @@ because it lies on the CPU.  Both paths check dtype, shapes and
 contiguity first.  ``LAUNCHES`` counts calls that reached the kernel (one
 per ``ssd_scan`` call); each such call launches five CUDA kernels in order
 (cumsum, C.B^T, chunk states, state passing, output), whose scratch
-buffers ``scratch`` allocates here.
+buffers ``scratch`` allocates here.  ``FLOPS`` and ``BYTES`` add up the
+work of those calls from their shapes (``launch_cost``), for the
+roofline, which sees no ctypes launch (``roofline/measure.py``).
+
+Gradients: where an input needs one (training), a CUDA call goes through
+``SSDScan``, an ``autograd.Function`` whose forward is the kernel and
+whose backward recomputes the plain version (``ref.ssd_chunked``) on the
+saved inputs and differentiates it through ``y`` and, where the caller
+uses it, the final state (the reference trains through the plain
+``ssd_chunked`` and has no backward kernel).  The forward never runs the
+plain version on the card.  A call that needs no gradient (serving, under
+``no_grad``) launches the kernels directly.
 """
 from __future__ import annotations
 
@@ -32,14 +43,36 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 1024
 TILE = 64                       # row tile of the kernels (C.B^T pitch)
+BACKWARD_RANGE = "plain_ssd_backward"     # profiler range of the backward
 
 LAUNCHES = 0
+FLOPS = 0                       # of the calls counted in LAUNCHES
+BYTES = 0
 _LIB = None
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    """Zero ``LAUNCHES`` and the ``FLOPS``/``BYTES`` of those calls."""
+    global LAUNCHES, FLOPS, BYTES
+    LAUNCHES = FLOPS = BYTES = 0
+
+
+def launch_cost(B: int, S: int, nh: int, hd: int, N: int, Q: int,
+                init: bool):
+    """(flops, bytes) of one call at chunk ``Q``: C.B^T once per (batch,
+    chunk) over the causal half (the heads share it), then per head the
+    weighted x over the causal half, the inter-chunk term and the state
+    update, and 2 flops per causal pair and head for the weighting; x,
+    dt, A, B, C (and the initial state) read once, y and the final state
+    written once."""
+    NC = S // Q
+    tri = Q * (Q + 1) // 2
+    flops = (B * NC * tri * 2 * N
+             + B * nh * NC * (tri * 2 * hd + 4 * Q * N * hd)
+             + B * nh * NC * tri * 2)
+    nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * N
+                  + B * nh * hd * N * (2 if init else 1))
+    return flops, nbytes
 
 
 def _library() -> ctypes.CDLL:
@@ -108,8 +141,30 @@ def scratch(B: int, S: int, nh: int, hd: int, N: int, Q: int,
             empty(B, NC, nh, hd, N))
 
 
+def _kernel(xh, dt, A, Bmat, Cmat, Q, initial_state, y, final) -> None:
+    """One call of the five CUDA kernels on the current stream; raises on
+    a CUDA error."""
+    B, S, nh, hd = xh.shape
+    N = Bmat.shape[-1]
+    lib = _library()
+    work = scratch(B, S, nh, hd, N, Q, xh.device)
+    with torch.cuda.device(xh.device):
+        err = lib.ssd_scan_launch(
+            xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+            Cmat.data_ptr(),
+            initial_state.data_ptr() if initial_state is not None else None,
+            y.data_ptr(), final.data_ptr(), *(w.data_ptr() for w in work),
+            B, S, nh, hd, N, Q,
+            torch.cuda.current_stream(xh.device).cuda_stream)
+    if err:
+        msg = lib.ssd_scan_error_string(err)
+        raise RuntimeError(
+            f"ssd_scan kernel launch failed: CUDA error {err} "
+            f"({msg.decode() if msg else 'unknown'})")
+
+
 def _launch(xh, dt, A, Bmat, Cmat, Q, initial_state):
-    global LAUNCHES
+    global LAUNCHES, FLOPS, BYTES
     B, S, nh, hd = xh.shape
     N = Bmat.shape[-1]
     if hd not in KERNEL_HEAD_DIMS or N not in KERNEL_STATE_DIMS:
@@ -135,23 +190,52 @@ def _launch(xh, dt, A, Bmat, Cmat, Q, initial_state):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte "
                              f"copies)")
-    lib = _library()
-    work = scratch(B, S, nh, hd, N, Q, xh.device)
-    with torch.cuda.device(xh.device):
-        err = lib.ssd_scan_launch(
-            xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
-            Cmat.data_ptr(),
-            initial_state.data_ptr() if initial_state is not None else None,
-            y.data_ptr(), final.data_ptr(), *(w.data_ptr() for w in work),
-            B, S, nh, hd, N, Q,
-            torch.cuda.current_stream(xh.device).cuda_stream)
-    if err:
-        msg = lib.ssd_scan_error_string(err)
-        raise RuntimeError(
-            f"ssd_scan kernel launch failed: CUDA error {err} "
-            f"({msg.decode() if msg else 'unknown'})")
+    _kernel(xh, dt, A, Bmat, Cmat, Q, initial_state, y, final)
     LAUNCHES += 1
+    flops, nbytes = launch_cost(B, S, nh, hd, N, Q,
+                                initial_state is not None)
+    FLOPS += flops
+    BYTES += nbytes
     return y, final
+
+
+class SSDScan(torch.autograd.Function):
+    """The kernels' forward with a backward by recompute: the plain
+    version on the saved inputs, differentiated by autograd through the
+    outputs that received a gradient."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bmat, Cmat, Q: int, initial_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xh, dt, A, Bmat, Cmat, initial_state)
+        ctx.Q = Q
+        return _launch(xh, dt, A, Bmat, Cmat, Q, initial_state)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dfinal):
+        need = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
+        # the range lets a profile read the recompute's device time apart
+        with torch.enable_grad(), \
+                torch.profiler.record_function(BACKWARD_RANGE):
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            y, final = ssd_chunked(*ins[:5], ctx.Q, initial_state=ins[5])
+            outs = [(o, g) for o, g in ((y, dy), (final, dfinal))
+                    if g is not None]
+            wrt = [t for t in ins if t is not None and t.requires_grad]
+            if not (outs and wrt):
+                return (None,) * 7
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in outs], wrt, [g for _, g in outs],
+                allow_unused=True))
+        res = [next(grads) if t is not None and t.requires_grad else None
+               for t in ins]
+        return (*res[:5], None, res[5])
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -160,7 +244,11 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y (B,S,nh,hd), final_state (B,nh,hd,N))."""
     Q = _check(xh, dt, A, Bmat, Cmat, chunk, initial_state)
-    if xh.device.type == "cuda":
+    if _on_card(xh):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (xh, dt, A, Bmat, Cmat, initial_state)):
+            return SSDScan.apply(xh, dt, A, Bmat, Cmat, Q, initial_state)
         return _launch(xh, dt, A, Bmat, Cmat, Q, initial_state)
     return ssd_chunked(xh, dt, A, Bmat, Cmat, chunk,
                        initial_state=initial_state)

@@ -5,7 +5,10 @@ function the Pallas kernel ``ssd_scan_pallas`` computes chunk by chunk:
 per chunk of Q steps, the inclusive cumsum of ``dt*A``, the causal decay
 matrix, the intra-chunk quadratic term, the inter-chunk term from the
 carried ``(hd, N)`` state and the state update.  Returns ``y`` and the
-final state, as the model's decode cache needs both.  The CPU path of
+final state, as the model's decode cache needs both.  One departure:
+the decay matrix is masked before its ``exp``, not after, which gives
+the same values and keeps the gradient finite where the reference's is
+NaN (the backward of ``kernels/ssd_scan/ops.py`` differentiates this).  The CPU path of
 ``ops.ssd_scan`` and the checks on the card use it.
 """
 from __future__ import annotations
@@ -42,7 +45,10 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     li = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]   # (B,NC,Q,Q,nh)
     iq = torch.arange(Q, device=xh.device)
     tri = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
-    L = torch.where(tri, torch.exp(li), 0.0)
+    # masked before the exp (the reference masks after it): the same
+    # values, but exp(li) above the diagonal overflows to inf once a
+    # chunk's decay passes ~88, and where's zero gradient times inf is NaN
+    L = torch.exp(torch.where(tri, li, float("-inf")))
     del li
     cb = torch.einsum("bcin,bcjn->bcij", Cq, Bq)     # (B,NC,Q,Q)
     M = cb[..., None] * L * dtq[:, :, None, :, :]    # weight on x_j

@@ -1,5 +1,18 @@
-"""Training on the GPU: Armol's provider selector (counterpart of
-``repro.launch.train``'s ``--federation`` path).
+"""Training on the GPU (counterpart of ``repro.launch.train``): the
+provider-side LMs (``--arch``) and Armol's provider selector
+(``--federation``).
+
+``--arch`` trains one of the repo's architectures (``--reduced`` for the
+CPU-smoke variant) on the synthetic data pipeline, with the reference's
+train step (AdamW, weight decay 0.1, clip 1.0, cosine schedule over
+``--steps``) in float32; on the card the flash and SSD kernels run the
+forward of every attention and Mamba layer.  ``--ckpt PATH`` saves the
+parameters (``checkpoint.store``), ``--obs-dir DIR`` the
+``train.lm_step_ms`` histogram.  The ssm and hybrid archs take a ``--seq``
+of at most the SSD chunk or a multiple of it.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --reduced --steps 50 --batch 8 --seq 128
 
 ``--federation`` trains the SAC (Armol) or TD3 (Armol-T) selector
 through the multi-lane off-policy driver: ``--lanes`` parallel env lanes
@@ -16,7 +29,7 @@ built by the CUDA IoU kernel.
 events there (``python -m repro_torch.launch.obs_report DIR`` renders
 them); results are bit-identical with or without it.  ``--device cpu``
 runs the plain PyTorch/numpy versions instead of the kernels; without it
-the run needs a GPU.  LM training (``--arch``) is not ported yet.
+the run needs a GPU.
 
 ``--scenario`` switches to ONLINE adaptation on a non-stationary provider
 pool (``repro_torch.scenarios``): the schedule re-prices, degrades, downs
@@ -144,8 +157,74 @@ def run_federation(args) -> int:
     return 0
 
 
+def run_lm(args) -> int:
+    """LM training: ``--steps`` train steps of ``--arch`` on the synthetic
+    pipeline's batches."""
+    import torch
+    from repro_torch.checkpoint.store import save_pytree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.serving.engine import pin_float32
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.ssm is not None and args.seq > cfg.ssm.chunk and \
+            args.seq % cfg.ssm.chunk:
+        raise SystemExit(f"--seq {args.seq} must be at most the SSM chunk "
+                         f"({cfg.ssm.chunk}) or a multiple of it")
+    state = init_train_state(cfg, seed=args.seed, device=args.device)
+    device = state.model.device
+    pin_float32()
+    n_params = sum(p.numel() for p in state.params)
+    print(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}): "
+          f"{n_params / 1e6:.1f}M params, device={device}")
+    step_fn = make_train_step(state.model, peak_lr=args.lr,
+                              total_steps=args.steps)
+    data = synthetic_lm_batches(cfg, args.batch, args.seq, seed=args.seed)
+    obs = _make_obs(args)
+    h_step = obs.metrics.histogram("train.lm_step_ms") \
+        if obs is not None else None
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    t0 = time.time()
+    for step in range(args.steps):
+        st0 = time.monotonic() if h_step is not None else 0.0
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in next(data).items()}
+        state, metrics = step_fn(state, batch)
+        if h_step is not None:
+            sync()
+            h_step.observe((time.monotonic() - st0) * 1e3)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"  step {step:4d} loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"lr={metrics['lr']:.2e} "
+                  f"({(time.time() - t0) / (step + 1):.2f}s/step)")
+    if args.ckpt:
+        save_pytree(args.ckpt, dict(state.model.named_parameters()))
+        print(f"[train] saved params to {args.ckpt}")
+    _finish_obs(obs, args)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="",
+                    help="LM architecture (required unless --federation)")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="LM: training steps (default 50); federation: "
+                         "env steps per epoch (default 500)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--federation", action="store_true",
                     help="train the Armol provider-selection agent on the "
                          "multi-lane off-policy driver")
@@ -154,8 +233,6 @@ def main():
     ap.add_argument("--beta", type=float, default=-0.03)
     ap.add_argument("--lanes", type=int, default=8)
     ap.add_argument("--epochs", type=int, default=5)
-    ap.add_argument("--steps", type=int, default=500,
-                    help="env steps per epoch")
     ap.add_argument("--images", type=int, default=400)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -171,16 +248,21 @@ def main():
     ap.add_argument("--blind", action="store_true",
                     help="scenario: hide provider status/fees from the "
                          "state (adaptation from reward alone)")
-    ap.add_argument("--arch", default="",
-                    help="LM training (not ported yet)")
     ap.add_argument("--obs-dir", default="",
                     help="write observability artifacts (metrics.json, "
                          "events.jsonl) to this directory; training "
                          "results are bit-identical with or without it")
     args = ap.parse_args()
-    if args.arch or not args.federation:
-        raise SystemExit("LM training (--arch) is not ported yet; use "
-                         "--federation")
+    if not args.federation:
+        if args.steps is None:
+            args.steps = 50
+        if not args.arch:
+            ap.error("--arch is required unless --federation is given")
+        return run_lm(args)
+    # the shared --steps flag means env steps per epoch here; the LM
+    # default of 50 would end training before the first update block
+    if args.steps is None:
+        args.steps = 500
     if args.scenario:
         return run_scenario(args)
     if args.obs_dir and args.algo == "ppo":

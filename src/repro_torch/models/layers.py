@@ -26,7 +26,7 @@ from torch import nn
 # ---------------------------------------------------------------------------
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors held as (frozen) parameters of a module
+    """A nested dict of tensors held as (trainable) parameters of a module
     tree.  ``p["w"]`` and ``"w" in p`` work as on the dict, so the
     functional apply code takes either."""
 
@@ -36,8 +36,7 @@ class ParamTree(nn.Module):
             if isinstance(v, Mapping):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v,
-                                                        requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

@@ -15,9 +15,9 @@
 
 The vision encoder and the audio frontend are stubs, as in the reference:
 a batch carries ``image_embeds`` (B, T, d_vision) or ``audio_frames`` (B,
-F, d_model) beside its tokens.  The training ``forward`` is not ported
-yet.  The reference stacks each layer's parameters and runs ``lax.scan``
-over the stack; here every block is its own module (``ParamTree``) in an
+F, d_model) beside its tokens.  The reference stacks each layer's
+parameters and runs ``lax.scan`` over the stack; here every block is its
+own module (``ParamTree``) in an
 ``nn.ModuleList`` and the scan is a Python loop: ``dense_blocks`` then
 ``blocks`` (dense/moe), ``blocks`` (ssm), ``blocks[s * per + i]`` as
 Mamba block ``i`` of super-block ``s`` (hybrid), ``blocks[s * (per - 1)
@@ -25,8 +25,19 @@ Mamba block ``i`` of super-block ``s`` (hybrid), ``blocks[s * (per - 1)
 its cross layer (vlm), ``enc_blocks`` then ``enc_norm`` and ``blocks``
 (audio).  Dense weights keep the reference's ``(fan_in, fan_out)``
 layout; parameters and caches are float32, the type the reference serves
-in and the kernels take.  With tied embeddings there is no ``unembed``
-and the logits go through ``embed.T``.
+in and the kernels take.  The untied unembedding is ``unembed_weight``
+(the reference's ``params["unembed"]``; ``unembed`` is the method, as in
+the reference); with tied embeddings there is none and the logits go
+through ``embed.T``.
+
+Training: ``forward`` runs the full sequence as the reference's
+``Model.forward`` does, with autograd through every parameter; the
+flash and SSD wrappers carry the gradient (their kernels' forward on the
+card, a backward that differentiates the plain version).  ``remat``
+wraps each layer body where the reference wraps ``jax.checkpoint``, in
+``torch.utils.checkpoint`` (non-reentrant): on the card each attention
+layer then launches flash twice a step, forward and recompute.
+``prefill`` and ``decode_step`` run under ``no_grad``.
 
 Cache (as the reference's ``init_cache``; W = the sliding window when
 ``max_len`` exceeds it under the ``sliding_window`` plan, else max_len):
@@ -52,6 +63,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -190,6 +202,13 @@ def _mamba_layer(cfg: ArchConfig, gen, dev) -> ParamTree:
                       "mamba": ssm_lib.init_mamba_block(cfg, gen, dev)})
 
 
+def _mamba_block(lp, x, cfg: ArchConfig):
+    """Pre-norm Mamba block with its residual over the full sequence (the
+    training forward: no caches)."""
+    return x + ssm_lib.mamba_forward(lp["mamba"],
+                                     apply_norm(lp["norm"], x, cfg.norm), cfg)
+
+
 def _mamba_step(lp, x, caches, cfg: ArchConfig, *, decode: bool):
     """Pre-norm Mamba block with its residual, over the full sequence or
     one token; writes the layer's (ssm, conv_x, conv_bc) caches in place."""
@@ -204,6 +223,14 @@ def _mamba_step(lp, x, caches, cfg: ArchConfig, *, decode: bool):
     for dst, src in zip(caches, (st1, cx1, cbc1)):
         dst.copy_(src)
     return x + y
+
+
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``remat`` (the
+    reference's ``jax.checkpoint`` around a layer body)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _ring_place(kv: torch.Tensor, S: int, W: int) -> torch.Tensor:
@@ -241,13 +268,11 @@ class Model(nn.Module):
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
         self.embed = nn.Parameter(
-            embed_init((cfg.vocab_size, cfg.d_model), gen, dev),
-            requires_grad=False)
+            embed_init((cfg.vocab_size, cfg.d_model), gen, dev))
         self.final_norm = ParamTree(init_norm(cfg.d_model, cfg.norm, dev))
         # tied embeddings: logits through embed.T
-        self.unembed = None if cfg.tie_embeddings else nn.Parameter(
-            embed_init((cfg.d_model, cfg.vocab_size), gen, dev),
-            requires_grad=False)
+        self.unembed_weight = None if cfg.tie_embeddings else nn.Parameter(
+            embed_init((cfg.d_model, cfg.vocab_size), gen, dev))
         if cfg.family in ("dense", "moe"):
             mo = cfg.moe
             n_dense = mo.first_dense_layers if mo else 0
@@ -292,9 +317,14 @@ class Model(nn.Module):
 
     # ----- helpers ----------------------------------------------------------
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = apply_norm(self.final_norm, x, self.cfg.norm)
-        w = self.embed.T if self.unembed is None else self.unembed
-        return (x @ w).float()
+        return self.unembed(apply_norm(self.final_norm, x, self.cfg.norm))
+
+    def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
+        """hidden (B, C, d) -> float32 logits (B, C, V); pairs with
+        ``forward(return_hidden=True)``."""
+        w = self.embed.T if self.unembed_weight is None else \
+            self.unembed_weight
+        return (hidden @ w).float()
 
     def _window_for(self, max_len: int) -> int:
         cfg = self.cfg
@@ -306,7 +336,8 @@ class Model(nn.Module):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _cross_source(self, batch) -> Optional[torch.Tensor]:
+    def _cross_source(self, batch, remat: bool = False
+                      ) -> Optional[torch.Tensor]:
         """What the cross layers attend to: the vlm's image embeddings, or
         the audio arch's frames through the encoder (float32, on the
         model's device); None for the other families.  Raises when the
@@ -318,18 +349,23 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name} ({self.cfg.family}) needs "
                              f"batch[{key!r}] beside the tokens")
         src = torch.as_tensor(batch[key], device=self.device).float()
-        return self._encode(src) if self.cfg.family == "audio" else src
+        return self._encode(src, remat) if self.cfg.family == "audio" \
+            else src
 
-    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, frames: torch.Tensor, remat: bool = False
+                ) -> torch.Tensor:
         """Audio encoder: ``enc_blocks`` non-causal (the flash kernel's
         full mask) over the frames at RoPE positions 0..F-1, then
         ``enc_norm``."""
         cfg = self.cfg
         B, F, _ = frames.shape
         pos = torch.arange(F, device=self.device)[None].expand(B, F)
+
+        def body(lp, x):
+            return _block_forward(lp, x, pos, cfg, causal=False)[0]
         x = frames
         for lp in self.enc_blocks:
-            x = _block_forward(lp, x, pos, cfg, causal=False)[0]
+            x = _run(body, remat, lp, x)
         return apply_norm(self.enc_norm, x, cfg.norm)
 
     def _attn_layers(self, cache: Dict):
@@ -356,7 +392,71 @@ class Model(nn.Module):
         return [(b, tuple(c[i] for c in flat))
                 for i, b in enumerate(self.blocks)]
 
+    # ----- training forward ---------------------------------------------------
+    def forward(self, batch, *, remat: bool = False, window: int = 0,
+                return_hidden: bool = False):
+        """Full-sequence forward of the reference's ``Model.forward`` ->
+        (float32 logits (B, S, V), aux loss () float32).
+
+        ``window`` > 0 applies a sliding-window causal mask to the
+        dense/moe GQA layers.  ``return_hidden`` skips the unembedding and
+        returns the final-norm hidden states (for the chunked loss).
+        ``remat`` recomputes each layer body in the backward pass (dense,
+        moe, ssm and audio: each block, the encoder's too; hybrid and vlm:
+        each super-block)."""
+        cfg = self.cfg
+        tokens = self._tokens(batch)
+        B, S = tokens.shape
+        src = self._cross_source(batch, remat)
+        x = self.embed[tokens]
+        positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        aux = torch.zeros((), dtype=F32, device=self.device)
+        fam = cfg.family
+        if fam in ("dense", "moe"):
+            def block(lp, x):
+                return _block_forward(lp, x, positions, cfg,
+                                      window=window)[:2]
+            for lp in list(self.dense_blocks) + list(self.blocks):
+                x, a = _run(block, remat, lp, x)
+                aux = aux + a
+        elif fam == "ssm":
+            for lp in self.blocks:
+                x = _run(_mamba_block, remat, lp, x, cfg)
+        elif fam == "hybrid":
+            def super_block(s, x):
+                for lp in self.blocks[s * self.per:(s + 1) * self.per]:
+                    x = _mamba_block(lp, x, cfg)
+                return _block_forward(self.shared_attn, x, positions,
+                                      cfg)[0]
+            for s in range(self.n_super):
+                x = _run(super_block, remat, s, x)
+        elif fam == "vlm":
+            spec = AttnSpec.from_cfg(cfg)
+            n = self.per - 1
+
+            def super_block(s, x, img):
+                for lp in self.blocks[s * n:(s + 1) * n]:
+                    x = _block_forward(lp, x, positions, cfg)[0]
+                cp = self.cross_blocks[s]
+                return _cross_block(cp, x, att.cross_kv(cp["attn"], img,
+                                                        spec), cfg)
+            for s in range(self.n_super):
+                x = _run(super_block, remat, s, x, src)
+        else:
+            spec = AttnSpec.from_cfg(cfg)
+
+            def block(lp, x, enc):
+                return _block_forward_cross(
+                    lp, x, positions, att.cross_kv(lp["cross"], enc, spec),
+                    cfg)[0]
+            for lp in self.blocks:
+                x = _run(block, remat, lp, x, src)
+        if return_hidden:
+            return apply_norm(self.final_norm, x, cfg.norm), aux
+        return self._logits(x), aux
+
     # ----- caches -------------------------------------------------------------
+    @torch.no_grad()
     def init_cache(self, batch_size: int, max_len: int,
                    batch: Optional[dict] = None) -> Dict:
         """Zero cache for ``decode_step``.  For the vlm and audio archs a

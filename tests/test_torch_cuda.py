@@ -944,3 +944,148 @@ def test_cut_frontier_scenario_on_the_card_launches_the_kernel(dev):
     assert got["baselines"] == want["baselines"]
     assert got["cascade"] == want["cascade"]
     assert len(got["rl"]) == len(got["hybrid"]) == len(got["mct"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# LM training: the kernels' autograd Functions and the train step
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, seed, dev):
+    """d(sum(w * fn(*inputs))) / d(inputs), w fixed random weights."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    loss = sum((torch.randn(o.shape, generator=gen, device=dev) * o).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, inputs, materialize_grads=True)
+
+
+def _rel(got, want, floor=1e-30):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 floor)
+
+
+@pytest.mark.parametrize("S,H,K,hd,causal,window", [
+    (256, 8, 2, 64, True, 0), (200, 4, 4, 128, True, 64),
+    (128, 4, 2, 80, False, 0)])
+def test_flash_function_gradients_equal_plain_autograd(dev, S, H, K, hd,
+                                                       causal, window):
+    """On the card the forward is the kernel (one launch, none in the
+    backward); every input's gradient equals the plain version's autograd
+    (the backward recomputes that same arithmetic)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    q, k, v = (t.requires_grad_() for t in qkv(np.random.default_rng(S), 2,
+                                                S, H, K, hd, dev))
+    f0 = fa.LAUNCHES
+    got = _grads(lambda *a: fa.flash_attention(*a, causal=causal,
+                                               window=window), (q, k, v), 1,
+                 dev)
+    assert fa.LAUNCHES == f0 + 1
+    want = _grads(lambda *a: flash_attention_torch(*a, causal=causal,
+                                                   window=window),
+                  (q, k, v), 1, dev)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-6
+
+
+@pytest.mark.parametrize("S,chunk,init", [(256, 64, False), (512, 256, True)])
+def test_ssd_function_gradients_equal_plain_autograd(dev, S, chunk, init):
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    x, dt, A, Bm, Cm, st = ssd_inputs(np.random.default_rng(S), 2, S, 4, 64,
+                                      64, dev, init)
+    ins = [t.requires_grad_() for t in (x, dt, A, Bm, Cm)] + (
+        [st.requires_grad_()] if init else [])
+
+    def kernel(*a):
+        return sd.ssd_scan(*a[:5], chunk, initial_state=a[5] if init
+                           else None)
+
+    def plain(*a):
+        return ssd_chunked(*a[:5], chunk, initial_state=a[5] if init
+                           else None)
+    s0 = sd.LAUNCHES
+    got = _grads(kernel, ins, 2, dev)
+    assert sd.LAUNCHES == s0 + 1
+    for g, w in zip(got, _grads(plain, ins, 2, dev)):
+        assert _rel(g, w) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-370m",
+                                  "zamba2-2.7b", "olmoe-1b-7b",
+                                  "seamless-m4t-medium"])
+def test_reduced_train_step_on_the_card_matches_the_cpu(dev, arch,
+                                                        monkeypatch):
+    """One reduced train step on the card (the kernels' forward) against
+    the CPU (plain versions), same weights and batch: loss and every
+    gradient within 1e-4 of its largest CPU entry or of 1e-3 of the
+    largest entry of all, the larger (a key bias's gradient is zero in
+    exact arithmetic: noise on both); the same card
+    gradients with the plain versions forced on the card; the step moves
+    ``wq``/``wk``/``wv`` and the Mamba input projections."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.models.model import MODALITY, Model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.serving.engine import pin_float32
+    from repro_torch.training.train_step import (TrainState, loss_and_grads,
+                                                 make_train_step)
+    pin_float32()
+    cfg = get_arch(arch).reduced()
+    cpu = Model(cfg, device="cpu", seed=3)
+    if cfg.family in MODALITY:
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                if not p.any():
+                    p.normal_(0.0, 0.5, generator=gen)
+    gpu = Model(cfg, device=dev, init=False)
+    gpu.load_state_dict(cpu.state_dict())
+    b = next(synthetic_lm_batches(cfg, 2, 64, seed=2))
+    bc = {k: torch.from_numpy(v) for k, v in b.items()}
+    bg = {k: v.to(dev) for k, v in bc.items()}
+    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    gg, lg, _ = loss_and_grads(gpu, bg)
+    assert fa.LAUNCHES > f0 or sd.LAUNCHES > s0
+    gc_, lc, _ = loss_and_grads(cpu, bc)
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    names = [n for n, _ in gpu.named_parameters()]
+    floor = 1e-3 * max(float(c.abs().max()) for c in gc_)
+    for name, g, c in zip(names, gg, gc_):
+        assert _rel(g.cpu(), c, floor) <= 1e-4, name
+    for mod in (fa, sd):                         # the plain versions,
+        monkeypatch.setattr(mod, "_on_card", lambda t: False)  # on the card
+    gp, _, _ = loss_and_grads(gpu, bg)
+    monkeypatch.undo()
+    moved = ("wq", "wk", "wv", "in_x", "in_z", "in_bc", "in_dt")
+    for name, g, p in zip(names, gg, gp):
+        assert _rel(g, p, floor) <= 1e-4, name
+        if name.split(".")[-1] in moved:
+            assert float(g.abs().max()) > 0, name
+    before = {n: p.detach().clone() for n, p in gpu.named_parameters()}
+    state = TrainState(gpu, adamw_init(gpu.parameters()))
+    state, m = make_train_step(gpu, peak_lr=1e-3, warmup_steps=1)(state, bg)
+    assert torch.isfinite(m["grad_norm"])
+    changed = [n for n, p in gpu.named_parameters()
+               if n.split(".")[-1] in moved
+               and not torch.equal(p.detach(), before[n])]
+    assert changed and len(changed) == sum(
+        n.split(".")[-1] in moved for n in names)
+
+
+def test_lm_train_cli_on_the_card(dev):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen1.5-0.5b", "--reduced", "--steps", "3"],
+        env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "device=cuda" in out.stdout and "step    2" in out.stdout

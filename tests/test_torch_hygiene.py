@@ -156,8 +156,14 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     from repro_torch.serving.socket_shards import \
         SocketShardedSubsetEvaluationCore
     from repro_torch.serving.transports import get_transport
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.train_step import init_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm_cfg = get_arch("qwen1.5-0.5b").reduced()
+    lm_argv = ["train", "--arch", "qwen1.5-0.5b", "--reduced", "--steps",
+               "1", "--batch", "2", "--seq", "16"]
     tr = generate_traces(default_providers(), 4, seed=0)
     boxes = [np.asarray([[0.1, 0.1, 0.5, 0.5]], np.float32)]
     for call in (lambda: resolve_device(),
@@ -176,10 +182,16 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
                      default_providers(), ScenarioSchedule("t", 4, []),
                      n_images=4),
                  lambda: ProcessShardedSubsetEvaluationCore(tr, n_shards=1),
-                 lambda: SocketShardedSubsetEvaluationCore(tr, n_shards=1)):
+                 lambda: SocketShardedSubsetEvaluationCore(tr, n_shards=1),
+                 lambda: init_train_state(lm_cfg),
+                 lambda: (monkeypatch.setattr("sys.argv", lm_argv),
+                          train_cli.main())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"
+    assert init_train_state(lm_cfg, device="cpu").model.device.type == "cpu"
+    monkeypatch.setattr("sys.argv", lm_argv + ["--device", "cpu"])
+    assert train_cli.main() == 0
     env = ArmolEnv(tr, device="cpu")
     assert env.core.use_kernel is False
     sac = SAC(SACConfig(state_dim=env.state_dim, n_providers=3),
@@ -280,9 +292,20 @@ def test_train_cli_raises_without_gpu_and_runs_on_cpu():
     ppo = subprocess.run(base + ["--algo", "ppo"], env=env,
                          capture_output=True, text=True, timeout=120)
     assert ppo.returncode != 0 and "no CUDA device" in ppo.stderr
-    out = subprocess.run(base + ["--arch", "zamba2-2.7b", "--device", "cpu"],
-                         env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "not ported yet" in out.stderr
+    # LM training (--arch, no --federation): ported; the GPU unless asked
+    # for the CPU, and the SSD chunk rule on --seq for the hybrid arch
+    lm = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+          "zamba2-2.7b", "--reduced", "--steps", "2", "--batch", "2"]
+    out = subprocess.run(lm + ["--seq", "64"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    out = subprocess.run(lm + ["--seq", "64", "--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "zamba2-2.7b (reduced)" in out.stdout and "step    1" in out.stdout
+    out = subprocess.run(lm + ["--seq", "40", "--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "multiple" in out.stderr
     # online scenarios are ported: they need the GPU like the rest, and
     # refuse PPO as the reference does
     scn = base + ["--scenario", "price_war", "--horizon", "64"]
