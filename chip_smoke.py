@@ -179,7 +179,20 @@ Phases, each fatal on failure (no result line is printed then):
                loss required to fall and the grad norm finite, one step
                profiled by group (GEMM, flash and SSD forward, the plain
                backward recompute, other) (``[lm-train:*]`` lines: ms a
-               step, tokens/s, MFU, peak MiB, launches a step).
+               step, tokens/s, MFU, peak MiB, launches a step);
+ 12. mesh    — ``launch.sharding`` on a one-rank NCCL group (a local
+               store), mesh (1, 1): qwen1.5-0.5b at full width and depth
+               from one seed twice, plain and ``shard_model`` (tp), an
+               8 x 1024-token prefill on each: logits within MESH_TOL and
+               24 flash launches on the local shards, as plain; one
+               reduced qwen1.5-0.5b and mamba2-370m train step sharded
+               (2d) against plain, loss and parameters within MESH_TOL
+               (SSD launches > 0); meanwhile, in processes of their own,
+               the dry run (``launch.dryrun``, fake group of 256 ranks,
+               fake CUDA tensors) of qwen1.5-0.5b x decode_32k,
+               olmoe-1b-7b x train_4k and command-r-plus-104b x
+               prefill_32k, each record ``ok`` (``[mesh:*]`` and
+               ``[mesh-dryrun:*]`` lines; the phase's time).
 
 The second-to-last lines are the ``kernels`` JSON and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Imports
@@ -1968,6 +1981,198 @@ def lm_train_phase(dev) -> dict:
     wall = time.perf_counter() - t_phase
     log(f"[lm-train] phase 11 in {wall:.1f}s")
     return {"reduced": reduced, "kernel_grads": grads, "full": full,
+            "launches": launches, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the mesh — sharded runs on the card and the dry run
+# ---------------------------------------------------------------------------
+
+# (a) One-rank NCCL group, mesh (1, 1): qwen1.5-0.5b at full width and
+# depth from the same weights twice, plain and through
+# ``launch.sharding.shard_model`` (tp); 8 x 1024-token prefill on both.
+# On one rank every local product is the plain one, so the logits are
+# expected bit-equal; MESH_TOL bounds them.  Then one reduced train step
+# (2d) of qwen1.5-0.5b (flash) and mamba2-370m (SSD) sharded against
+# plain: loss and every updated parameter within MESH_TOL.
+MESH_ARCH = "qwen1.5-0.5b"
+MESH_TOL = 1e-6
+MESH_PREFILL = dict(batch=8, prompt=1024, max_len=1040)
+MESH_TRAIN_ARCHS = ("qwen1.5-0.5b", "mamba2-370m")
+# (b) The dry run (``launch.dryrun``) of these combinations on the fake
+# 16x16 group, one process each, side by side with (a): the reference
+# test's combination, an expert-parallel FSDP train step with AdamW, and a
+# K = 8 arch on a 16-way axis (sequence-sharded cache, tied 256k vocab).
+MESH_DRYRUN = (("qwen1.5-0.5b", "decode_32k"), ("olmoe-1b-7b", "train_4k"),
+               ("command-r-plus-104b", "prefill_32k"))
+MESH_DRYRUN_TIMEOUT = 600
+
+
+def start_mesh_dryruns() -> dict:
+    """Phase 12(b): one ``python -m repro_torch.launch.dryrun`` process per
+    combination (fake CUDA tensors on a fake group of 256 ranks: the fake
+    group never shares a process with phase 12(a)'s NCCL group)."""
+    import os
+    out_dir = ROOT / "build" / "mesh_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for arch, shape in MESH_DRYRUN:
+        out = out_dir / f"{arch}_{shape}.jsonl"
+        out.unlink(missing_ok=True)
+        procs[(arch, shape)] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def finish_mesh_dryruns(started: dict) -> dict:
+    """Each combination's record; fails unless every one is ``ok``."""
+    records, failed = {}, []
+    try:
+        for (arch, shape), (proc, out) in started["procs"].items():
+            left = MESH_DRYRUN_TIMEOUT - (time.perf_counter() - started["t0"])
+            text = "".join(proc.communicate(timeout=max(left, 1)))
+            lines = out.read_text().splitlines() if out.exists() else []
+            rec = json.loads(lines[-1]) if lines else {"status": "none"}
+            records[f"{arch} x {shape}"] = rec
+            log(f"[mesh-dryrun:{arch}:{shape}] {json.dumps(rec)}")
+            if proc.returncode != 0 or rec.get("status") != "ok":
+                failed.append((arch, shape, proc.returncode,
+                               text[-2000:]))
+    finally:
+        stop_processes([p for p, _ in started["procs"].values()])
+    if failed:
+        raise AssertionError(f"dry-run combinations failed: {failed}")
+    return records
+
+
+def mesh_prefill(dev) -> dict:
+    """Phase 12(a), serving: qwen1.5-0.5b plain and sharded (tp) on the
+    mesh (1, 1), the same weights, the same 8 x 1024 tokens."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(MESH_ARCH)
+    mesh = make_host_mesh(model=1, data=1)
+    plain = Model(cfg, device=dev, seed=0)
+    sharded = shd.shard_model(Model(cfg, device=dev, seed=0), mesh, cfg,
+                              "tp")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_PREFILL["batch"],
+                                               MESH_PREFILL["prompt"]),
+                           generator=gen, device=dev)
+    out = {}
+    for label, model in (("plain", plain), ("sharded", sharded)):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": tokens},
+                                      MESH_PREFILL["max_len"])
+        torch.cuda.synchronize()
+        out[label] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "flash_launches": fa.LAUNCHES,
+                      "logits": logits.full_tensor()
+                      if hasattr(logits, "full_tensor") else logits}
+    err = float((out["sharded"]["logits"] - out["plain"]["logits"]).abs()
+                .max())
+    finite = bool(torch.isfinite(out["sharded"]["logits"]).all())
+    res = {"max_abs_err": err, "bit_equal": bool(torch.equal(
+        out["sharded"]["logits"], out["plain"]["logits"])),
+        "finite": finite, "sharded_params": sum(
+            any(p.is_shard() for p in w.placements)
+            for w in sharded.parameters()),
+        "cache_k_placements": str(cache["k"].placements),
+        **{f"{k}_{m}": out[k][m] for k in ("plain", "sharded")
+           for m in ("ms", "flash_launches")}}
+    log(f"[mesh:{MESH_ARCH}] prefill {MESH_PREFILL}: {json.dumps(res)}")
+    if not (finite and err <= MESH_TOL
+            and res["sharded_flash_launches"] == cfg.num_layers
+            == res["plain_flash_launches"]):
+        raise AssertionError(f"sharded prefill: {res}")
+    return res
+
+
+def mesh_train_step(arch: str, dev) -> dict:
+    """Phase 12(a), training: one reduced train step sharded (2d) on the
+    mesh (1, 1) against the plain model, the same weights and batch."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.training.train_step import (TrainState,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    cfg = get_arch(arch).reduced()
+    mesh = make_host_mesh(model=1, data=1)
+    plain = init_train_state(cfg, seed=0, device=dev)
+    model = shd.shard_model(init_train_state(cfg, seed=0, device=dev).model,
+                            mesh, cfg, "2d")
+    state = TrainState(model=model, opt=adamw_init(model.parameters()))
+    raw = next(synthetic_lm_batches(cfg, 4, 64, seed=0))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    sbatch = shd.shard_tree(batch, mesh, shd.batch_shardings(mesh, batch, 4))
+    _, want = make_train_step(plain.model)(plain, batch)
+    fa.reset_launches()
+    sd.reset_launches()
+    _, got = make_train_step(model)(state, sbatch)
+    torch.cuda.synchronize()
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    res = {"launches": {"flash_attention": fa.LAUNCHES,
+                        "ssd_scan": sd.LAUNCHES},
+           "loss_abs_err": abs(float(full(got["loss"]))
+                               - float(want["loss"])),
+           "param_max_abs_err": max(
+               float((full(a) - b).abs().max()) for a, b in
+               zip(model.parameters(), plain.model.parameters()))}
+    log(f"[mesh:{arch}:reduced] 2d train step: {json.dumps(res)}")
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    if not (res["launches"][kernel] > 0 and res["loss_abs_err"] <= MESH_TOL
+            and res["param_max_abs_err"] <= MESH_TOL):
+        raise AssertionError(f"{arch}: sharded train step: {res}")
+    return res
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 12: (b) started first, (a) meanwhile in this process under a
+    one-rank NCCL group (a local store), destroyed at the end of (a)."""
+    import torch
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    started = start_mesh_dryruns()
+    try:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1, device_id=dev)
+        try:
+            prefill = mesh_prefill(dev)
+            torch.cuda.empty_cache()
+            train = {a: mesh_train_step(a, dev) for a in MESH_TRAIN_ARCHS}
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        stop_processes([p for p, _ in started["procs"].values()])
+        raise
+    t_a = time.perf_counter() - t_phase
+    dryrun = finish_mesh_dryruns(started)
+    wall = time.perf_counter() - t_phase
+    launches = {"flash_attention": prefill["sharded_flash_launches"]
+                + train["qwen1.5-0.5b"]["launches"]["flash_attention"],
+                "ssd_scan": train["mamba2-370m"]["launches"]["ssd_scan"]}
+    log(f"[mesh] phase 12 in {wall:.1f}s ((a) {t_a:.1f}s); launches on "
+        f"local shards {launches}")
+    return {"prefill": prefill, "train": train, "dryrun": dryrun,
             "launches": launches, "wall_s": wall}
 
 
@@ -4183,6 +4388,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lmt = lm_train_phase(dev)
 
+    # 12. the mesh: qwen1.5-0.5b sharded on a one-rank NCCL group against
+    # plain, two reduced sharded train steps, and the dry run beside them
+    torch.cuda.empty_cache()
+    meshp = mesh_phase(dev)
+
     mods = [m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "repro"
             or m.startswith("repro.")]
@@ -4244,10 +4454,12 @@ def main() -> int:
                          }[name],
             "launches": lm["launches"][name]
             + sum(fam["launches"][name].values())
-            + sum(lmt["launches"][name].values()),
+            + sum(lmt["launches"][name].values())
+            + meshp["launches"][name],
             "launches_by_arch": {LM_ARCH: lm["launches"][name],
                                  **fam["launches"][name]},
             "launches_train_lm": lmt["launches"][name],
+            "launches_mesh": meshp["launches"][name],
             "training": lmt["kernel_grads"][name],
             "max_abs_err": max([err, t["serving_max_abs_err"]] + (
                 list(fam["flash_errs"].values())

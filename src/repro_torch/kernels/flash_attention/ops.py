@@ -22,14 +22,33 @@ differentiates it (the reference has no backward kernel either: it
 trains through the plain ``_sdpa``).  The forward never runs the plain
 version on the card.  A call that needs no gradient (serving, under
 ``no_grad``) launches the kernel directly.
+
+Sharded and fake tensors: a ``DTensor`` (``launch/sharding.py``) or a
+fake tensor (``FakeTensorMode``, the dry run of ``launch/dryrun.py``)
+goes through the custom op ``torch.ops.repro_torch.flash_attention``
+instead, which DTensor and the dispatch modes see as one operator.  Its
+CUDA and CPU implementation is the call above on the local tensors (the
+kernel for a CUDA shard, made contiguous first; the plain version for a
+CPU one); its fake implementation gives the output's shape and launches
+nothing; its autograd formula is ``FlashAttention``'s backward (on each
+rank's local shards for a DTensor, ``_backward_op``); its FLOP
+formula is ``launch_cost``'s (``torch.utils.flop_counter``); and its
+sharding rule (``register_sharding``) keeps q, k, v and the output on
+one placement per mesh dimension: replicated, sharded over the batch, or
+sharded over the heads where the query and key/value heads both divide
+every mesh dimension (a rank then holds whole GQA groups).  A plain
+tensor keeps the route above, so no counter or number of the unsharded
+port moves.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
 
+from repro_torch.device import is_dtensor, is_sharded_or_fake
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_torch
 
@@ -84,7 +103,8 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           contiguous: bool = True) -> None:
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -93,7 +113,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-D (B, S, heads, hd), got "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device.type not in ("cuda", "cpu"):
             raise ValueError(f"{name} lies on unsupported device {t.device}")
@@ -164,17 +184,54 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        need = ctx.needs_input_grad[:3]
-        # the range lets a profile read the recompute's device time apart
-        with torch.enable_grad(), \
-                torch.profiler.record_function(BACKWARD_RANGE):
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            out = flash_attention_torch(*ins, causal=ctx.causal,
-                                        window=ctx.window)
-            grads = iter(torch.autograd.grad(
-                out, [t for t in ins if t.requires_grad], grad_out))
-        return (*(next(grads) if n else None for n in need), None, None)
+        return _backward(ctx, grad_out)
+
+
+def _backward(ctx, grad_out):
+    """The plain version recomputed on the saved q, k, v and
+    differentiated (``FlashAttention``)."""
+    return _plain_grads(ctx.saved_tensors, grad_out, ctx.needs_input_grad[:3],
+                        ctx.causal, ctx.window) + (None, None)
+
+
+def _plain_grads(saved, grad_out, need, causal: bool, window: int):
+    # the range lets a profile read the recompute's device time apart
+    with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+        ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = flash_attention_torch(*ins, causal=causal, window=window)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in ins if t.requires_grad], grad_out))
+    return tuple(next(grads) if n else None for n in need)
+
+
+def _backward_op(ctx, grad_out):
+    """The custom op's backward: ``_backward``, on each rank's local
+    shards for DTensors.  q, k, v and the gradient are laid out as the
+    forward's rule lays them out (each mesh dim: the batch, the heads
+    where both head counts divide, else replicated), where the attention
+    of a rank reads only its own rows and heads, and the gradients keep
+    that layout."""
+    q, k, v = ctx.saved_tensors
+    need = ctx.needs_input_grad[:3]
+    if not is_dtensor(q):
+        return _backward(ctx, grad_out)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    place = [Shard(p.dim) if p.is_shard() and p.dim in (0, 2) else Replicate()
+             for p in q.placements]
+    heads = math.prod(n for n, p in zip(mesh.shape, place)
+                      if p.is_shard() and p.dim == 2)
+    if q.shape[2] % heads or k.shape[2] % heads:
+        place = [Replicate() if p.is_shard() and p.dim == 2 else p
+                 for p in place]
+    ins = [t.redistribute(mesh, place) for t in (q, k, v)]
+    g = grad_out.redistribute(mesh, place)
+    local = _plain_grads([t.to_local() for t in ins], g.to_local(), need,
+                         ctx.causal, ctx.window)
+    return tuple(None if lg is None else DTensor.from_local(
+        lg.contiguous(), mesh, place, run_check=False, shape=t.shape,
+        stride=t.stride())
+        for lg, t in zip(local, ins)) + (None, None)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -184,12 +241,75 @@ def _on_card(t: torch.Tensor) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) float32 -> (B, S, H, hd)."""
-    _check(q, k, v)
+    sharded = is_sharded_or_fake(q, k, v)
+    _check(q, k, v, contiguous=not sharded)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if sharded:
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal,
+                                                     window)
     if _on_card(q):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window)
         return _launch(q, k, v, causal, window)
     return flash_attention_torch(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# The custom op: DTensors and fake tensors (see the module docstring)
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
+    """The wrapper's call on local tensors: the kernel on the card, the
+    plain version on the CPU."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    _check(q, k, v)
+    if _on_card(q):
+        return _launch(q, k, v, causal, window)
+    # contiguous, as the kernel's output and the fake one are
+    return flash_attention_torch(q, k, v, causal=causal,
+                                 window=window).contiguous()
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.window = causal, window
+
+
+flash_attention_op.register_autograd(_backward_op,
+                                     setup_context=_setup_context)
+
+
+def _register_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _flops(q, k, v, causal, window, *args, out_shape=None, **kwargs):
+        B, S, H, hd = q
+        return launch_cost(B, S, H, k[2], hd, causal, window)[0]
+
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _sharding(q, k, v, causal, window):
+        rules = [([Replicate()], [Replicate()] * 3 + [None, None]),
+                 ([Shard(0)], [Shard(0)] * 3 + [None, None])]
+        n = max(q.mesh.shape)
+        if q.shape[2] % n == 0 and k.shape[2] % n == 0:
+            rules.append(([Shard(2)], [Shard(2)] * 3 + [None, None]))
+        return rules
+
+
+_register_formulas()

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import einsum
+
 NEG_INF = -1e30
 
 
@@ -26,12 +28,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K = k.shape[2]
     G = H // K
     q = q.reshape(B, S, K, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
+    scores = einsum("bskgh,btkh->bkgst", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
         scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
+    out = einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
     return out.reshape(B, S, H, hd)
 
 

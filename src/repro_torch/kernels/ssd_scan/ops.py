@@ -25,15 +25,31 @@ uses it, the final state (the reference trains through the plain
 ``ssd_chunked`` and has no backward kernel).  The forward never runs the
 plain version on the card.  A call that needs no gradient (serving, under
 ``no_grad``) launches the kernels directly.
+
+Sharded and fake tensors: a ``DTensor`` (``launch/sharding.py``) or a
+fake tensor (the dry run of ``launch/dryrun.py``) goes through the custom
+op ``torch.ops.repro_torch.ssd_scan`` instead: the call above on the
+local tensors (the kernels for CUDA shards, made contiguous first; the
+plain version for CPU ones), a fake implementation that gives ``y`` and
+the final state's shapes and launches nothing, ``SSDScan``'s backward as
+its autograd formula (on each rank's local shards for DTensors,
+``_backward_op``), ``launch_cost``'s FLOP formula, and a sharding
+rule over one placement per mesh dimension: replicated, sharded over
+the batch (every input but ``A``), or sharded over the heads ``nh``
+(x, dt, ``A``, the initial and final states and ``y``; B and C, shared
+by the heads, replicated) where ``nh`` divides every mesh dimension.  A
+plain tensor keeps the route above.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import is_dtensor, is_sharded_or_fake
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
@@ -89,7 +105,8 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(xh, dt, A, Bmat, Cmat, chunk, initial_state) -> int:
+def _check(xh, dt, A, Bmat, Cmat, chunk, initial_state, *,
+           contiguous: bool = True) -> int:
     named = [(xh, "xh", 4), (dt, "dt", 3), (A, "A", 1), (Bmat, "Bmat", 3),
              (Cmat, "Cmat", 3)]
     if initial_state is not None:
@@ -102,7 +119,7 @@ def _check(xh, dt, A, Bmat, Cmat, chunk, initial_state) -> int:
         if t.dim() != ndim:
             raise ValueError(f"{name} must be {ndim}-D, got "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != xh.device:
             raise ValueError(f"{name} lies on {t.device}, xh on {xh.device}")
@@ -214,24 +231,92 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, dfinal):
-        need = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
-        # the range lets a profile read the recompute's device time apart
-        with torch.enable_grad(), \
-                torch.profiler.record_function(BACKWARD_RANGE):
-            ins = [None if t is None else t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            y, final = ssd_chunked(*ins[:5], ctx.Q, initial_state=ins[5])
-            outs = [(o, g) for o, g in ((y, dy), (final, dfinal))
-                    if g is not None]
-            wrt = [t for t in ins if t is not None and t.requires_grad]
-            if not (outs and wrt):
-                return (None,) * 7
-            grads = iter(torch.autograd.grad(
-                [o for o, _ in outs], wrt, [g for _, g in outs],
-                allow_unused=True))
-        res = [next(grads) if t is not None and t.requires_grad else None
-               for t in ins]
-        return (*res[:5], None, res[5])
+        return _backward(ctx, dy, dfinal)
+
+
+def _backward(ctx, dy, dfinal):
+    """The plain version recomputed on the saved inputs and differentiated
+    through the outputs that received a gradient (``SSDScan``)."""
+    need = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
+    res = _plain_grads(ctx.saved_tensors, dy, dfinal, need, ctx.Q)
+    return (*res[:5], None, res[5])
+
+
+def _plain_grads(saved, dy, dfinal, need, Q: int):
+    # the range lets a profile read the recompute's device time apart
+    with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(saved, need)]
+        y, final = ssd_chunked(*ins[:5], Q, initial_state=ins[5])
+        outs = [(o, g) for o, g in ((y, dy), (final, dfinal))
+                if g is not None]
+        wrt = [t for t in ins if t is not None and t.requires_grad]
+        if not (outs and wrt):
+            return (None,) * 6
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in outs], wrt, [g for _, g in outs],
+            allow_unused=True))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in ins)
+
+
+# the custom op's layouts on one mesh dim, by input (xh, dt, A, Bmat, Cmat,
+# initial state), output (y, final) and gradient: "batch", "heads", or
+# replicated; "P" marks a gradient each rank holds a part of (a sum)
+_LAYOUT = {"batch": ((0, 0, None, 0, 0, 0), (0, 0),
+                     (0, 0, "P", 0, 0, 0)),
+           "heads": ((2, 2, 0, None, None, 1), (2, 1),
+                     (2, 2, 0, "P", "P", 1)),
+           "repl": ((None,) * 6, (None, None), (None,) * 6)}
+
+
+def _backward_op(ctx, dy, dfinal):
+    """The custom op's backward: ``_backward``, on each rank's local
+    shards for DTensors.  The inputs and output gradients are laid out as
+    the forward's rule lays them out (each mesh dim: the batch, the heads
+    where they divide, else replicated), where a rank's scan reads only
+    its own rows and heads; the gradients of what the ranks share (A
+    over the batch, B and C over the heads) are partial sums, reduced
+    before they are returned."""
+    saved = ctx.saved_tensors
+    xh = saved[0]
+    need = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
+    if not is_dtensor(xh):
+        return _backward(ctx, dy, dfinal)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = xh.device_mesh
+    kinds = ["batch" if p.is_shard() and p.dim == 0 else
+             "heads" if p.is_shard() and p.dim == 2 else "repl"
+             for p in xh.placements]
+    heads = math.prod(n for n, k in zip(mesh.shape, kinds) if k == "heads")
+    if xh.shape[2] % heads:
+        kinds = ["repl" if k == "heads" else k for k in kinds]
+
+    def place(which, i):
+        out = []
+        for k in kinds:
+            d = _LAYOUT[k][which][i]
+            out.append(Partial() if d == "P" else
+                       Replicate() if d is None else Shard(d))
+        return out
+    ins = [None if t is None else t.redistribute(mesh, place(0, i))
+           for i, t in enumerate(saved)]
+    outs = [None if g is None else g.redistribute(mesh, place(1, i))
+            for i, g in enumerate((dy, dfinal))]
+    local = _plain_grads([None if t is None else t.to_local() for t in ins],
+                         *(None if g is None else g.to_local() for g in outs),
+                         need, ctx.Q)
+    res = [None if lg is None else DTensor.from_local(
+        lg.contiguous(), mesh, place(2, i), run_check=False,
+        shape=ins[i].shape, stride=ins[i].stride()) for i, lg in
+        enumerate(local)]
+    # the partial sums reduced here (each small: A, B, C), so that the
+    # ops the gradients flow back through see no partial placement
+    res = [g if g is None or not any(p.is_partial() for p in g.placements)
+           else g.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in g.placements])
+           for g in res]
+    return (*res[:5], None, res[5])
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -243,7 +328,12 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y (B,S,nh,hd), final_state (B,nh,hd,N))."""
-    Q = _check(xh, dt, A, Bmat, Cmat, chunk, initial_state)
+    sharded = is_sharded_or_fake(xh, dt, A, Bmat, Cmat, initial_state)
+    Q = _check(xh, dt, A, Bmat, Cmat, chunk, initial_state,
+               contiguous=not sharded)
+    if sharded:
+        return torch.ops.repro_torch.ssd_scan(xh, dt, A, Bmat, Cmat, Q,
+                                              initial_state)
     if _on_card(xh):
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad
@@ -252,3 +342,75 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return _launch(xh, dt, A, Bmat, Cmat, Q, initial_state)
     return ssd_chunked(xh, dt, A, Bmat, Cmat, chunk,
                        initial_state=initial_state)
+
+
+# ---------------------------------------------------------------------------
+# The custom op: DTensors and fake tensors (see the module docstring)
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bmat: torch.Tensor, Cmat: torch.Tensor, Q: int,
+                initial_state: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wrapper's call on local tensors: the kernels on the card, the
+    plain version on the CPU."""
+    xh, dt, A, Bmat, Cmat = (t.contiguous() for t in (xh, dt, A, Bmat, Cmat))
+    if initial_state is not None:
+        initial_state = initial_state.contiguous()
+    _check(xh, dt, A, Bmat, Cmat, Q, initial_state)
+    if _on_card(xh):
+        return _launch(xh, dt, A, Bmat, Cmat, Q, initial_state)
+    y, final = ssd_chunked(xh, dt, A, Bmat, Cmat, Q,
+                           initial_state=initial_state)
+    # contiguous, as the kernels' outputs and the fake ones are
+    return y.contiguous(), final.contiguous()
+
+
+@ssd_scan_op.register_fake
+def _(xh, dt, A, Bmat, Cmat, Q, initial_state):
+    B, S, nh, hd = xh.shape
+    return xh.new_empty(xh.shape), xh.new_empty((B, nh, hd, Bmat.shape[-1]))
+
+
+def _setup_context(ctx, inputs, output):
+    xh, dt, A, Bmat, Cmat, Q, initial_state = inputs
+    ctx.save_for_backward(xh, dt, A, Bmat, Cmat, initial_state)
+    ctx.Q = Q
+    ctx.set_materialize_grads(False)     # an unused output's gradient: None
+
+
+ssd_scan_op.register_autograd(_backward_op, setup_context=_setup_context)
+
+
+def _register_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan)
+    def _flops(xh, dt, A, Bmat, Cmat, Q, initial_state, *args,
+               out_shape=None, **kwargs):
+        B, S, nh, hd = xh
+        return launch_cost(B, S, nh, hd, Bmat[-1], Q,
+                           initial_state is not None)[0]
+
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.ssd_scan.default)
+    def _sharding(xh, dt, A, Bmat, Cmat, Q, initial_state):
+        init = initial_state is not None
+        R = Replicate()
+        rules = [([R, R], [R] * 5 + [None, R if init else None]),
+                 ([Shard(0), Shard(0)],
+                  [Shard(0), Shard(0), R, Shard(0), Shard(0), None,
+                   Shard(0) if init else None])]
+        if xh.shape[2] % max(xh.mesh.shape) == 0:
+            rules.append(([Shard(2), Shard(1)],
+                          [Shard(2), Shard(2), Shard(0), R, R, None,
+                           Shard(1) if init else None]))
+        return rules
+
+
+_register_formulas()

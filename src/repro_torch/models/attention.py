@@ -20,6 +20,23 @@ weight-absorbed form.  Cross-attention is plain PyTorch too (``sdpa``
 with no mask, as the reference's ``_sdpa``): its keys are the source's
 (image tokens or encoder frames), a length the flash kernel, like the
 Pallas kernel it ports, does not take beside the query's.
+
+Sharded (``launch/sharding.py``): q's heads shard over "model" with
+``wq``; ``wk``/``wv`` shard only where ``num_kv_heads`` divides the axis
+(the reference's ``_COL_KV`` guard), else k and v stay replicated.  A
+flash call takes whole GQA groups per rank, so where K does not divide
+the ranks that hold q's heads, ``_kv_for_shards`` repeats each key/value
+head r = n / gcd(K, n) times (n those ranks; Command-R+, Qwen1.5-110B,
+StableLM-12B and Llama-3.2-Vision: K = 8 on 16, r = 2) and gives k and v
+q's placements, a local slice of the replicated tensors: each rank then
+holds whole groups (H / n query heads over K r / n repeated heads), and
+no value changes (query head h reads repeated head h // (G / r), which
+is original head h // G).  The cache keeps the K original heads.  Where r
+does not divide G the call is left to DTensor's rule, which gathers q's
+heads (a collective the dry run counts).  A decode step writes its new
+key/value in place; into a cache sharded along the sequence (K not
+dividing "model", and MLA's latent cache) it writes through
+``torch.where`` over the slot, which a rank applies to its own slots.
 """
 from __future__ import annotations
 
@@ -30,6 +47,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
+from repro_torch.device import einsum, is_dtensor, relayout
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import sdpa
 from repro_torch.models.layers import (F32, apply_norm, apply_rope,
@@ -75,17 +93,34 @@ def init_attention(spec: AttnSpec, gen: Optional[torch.Generator],
     return p
 
 
+def _split_heads(t: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """(B, S, n_heads * hd) -> (B, S, n_heads, hd).  A DTensor split along
+    its last dim over ranks that do not divide ``n_heads`` (DTensor may
+    shard a product with a replicated weight over its columns) is
+    gathered along it first: a head is never cut."""
+    if is_dtensor(t):
+        last = t.dim() - 1
+        ranks = math.prod(size for size, pl in zip(t.device_mesh.shape,
+                                                    t.placements)
+                          if pl.is_shard() and pl.dim == last)
+        if n_heads % ranks:
+            from torch.distributed.tensor import Replicate
+            t = relayout(t, [
+                Replicate() if pl.is_shard() and pl.dim == last else pl
+                for pl in t.placements])
+    return t.reshape(t.shape[0], t.shape[1], n_heads, hd)
+
+
 def _project_qkv(p, x: torch.Tensor, spec: AttnSpec, positions: torch.Tensor):
-    B, S, _ = x.shape
     H, K, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if spec.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    q = _split_heads(q, H, hd)
+    k = _split_heads(k, K, hd)
+    v = _split_heads(v, K, hd)
     if spec.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
         k = apply_norm(p["k_norm"], k, "rmsnorm")
@@ -94,13 +129,76 @@ def _project_qkv(p, x: torch.Tensor, spec: AttnSpec, positions: torch.Tensor):
     return q, k, v
 
 
+def _kv_for_shards(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """k and v for a flash call on q's shards (see the module docstring):
+    unchanged for plain tensors; else repeated to whole GQA groups per
+    rank where needed, on q's placements."""
+    n = _head_ranks(q)
+    if n == 1:
+        return k, v
+    from torch.distributed.tensor import Shard
+    B, S, K, hd = k.shape
+    r = n // math.gcd(K, n)
+    if (q.shape[2] // K) % r:
+        return k, v
+    if r > 1:
+        k, v = (t[:, :, :, None, :].expand(B, S, K, r, hd)
+                .reshape(B, S, K * r, hd) for t in (k, v))
+    # heads as q's; every other mesh dim as k's own
+    heads = [_shards_heads(pq) for pq in q.placements]
+    return (relayout(t, [Shard(2) if h else pt
+                         for h, pt in zip(heads, t.placements)])
+            for t in (k, v))
+
+
+def _shards_heads(placement) -> bool:
+    return placement.is_shard() and placement.dim == 2
+
+
+def _head_ranks(q: torch.Tensor) -> int:
+    """How many ranks q's heads (dim 2) are split over (1 for a plain
+    tensor)."""
+    if not is_dtensor(q):
+        return 1
+    return math.prod(size for size, pl in zip(q.device_mesh.shape,
+                                               q.placements)
+                     if _shards_heads(pl))
+
+
+def _q_for_cache(q: torch.Tensor, K: int) -> torch.Tensor:
+    """q for a decode step against a cache of K key/value heads: where K
+    does not divide the ranks that hold q's heads (the cache is then
+    sharded along the sequence), q's heads are gathered, one token's
+    worth, rather than moving the cache."""
+    n = _head_ranks(q)
+    if n == 1 or K % n == 0:
+        return q
+    from torch.distributed.tensor import Replicate
+    return relayout(q, [Replicate() if _shards_heads(pl) else pl
+                        for pl in q.placements])
+
+
+def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``cache[:, slot] = new`` in place (cache (B, W, ...), new (B,
+    ...)); through ``torch.where`` where the cache is sharded along W."""
+    if is_dtensor(cache) and any(pl.is_shard() and pl.dim == 1
+                                 for pl in cache.placements):
+        W = cache.shape[1]
+        hit = torch.arange(W, device=cache.device) == slot
+        hit = hit.reshape((1, W) + (1,) * (cache.dim() - 2))
+        cache.copy_(torch.where(hit, new[:, None], cache))
+        return
+    cache[:, slot] = new
+
+
 def attention_forward(p, x: torch.Tensor, positions: torch.Tensor,
                       spec: AttnSpec, *, causal: bool = True, window: int = 0,
                       return_cache: bool = False):
     """Full-sequence self-attention (prefill), through the flash kernel.
     ``window`` applies only with ``causal``, as in the reference."""
     q, k, v = _project_qkv(p, x, spec, positions)
-    out = flash_ops.flash_attention(q, k, v, causal=causal,
+    out = flash_ops.flash_attention(q, *_kv_for_shards(q, k, v),
+                                    causal=causal,
                                     window=window if causal else 0)
     y = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
     if return_cache:
@@ -125,15 +223,15 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q, k, v = _project_qkv(p, x, spec, positions)
     slot = pos % W if window else pos
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    _write_slot(cache_k, slot, k[:, 0])
+    _write_slot(cache_v, slot, v[:, 0])
     j = torch.arange(W, device=x.device)
     if window:
         valid = (j <= pos) | (pos >= W)
     else:
         valid = j <= pos
     mask = valid[None, None, :].expand(B, 1, W)
-    out = sdpa(q, cache_k, cache_v, mask)
+    out = sdpa(_q_for_cache(q, cache_k.shape[2]), cache_k, cache_v, mask)
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, (cache_k, cache_v)
 
@@ -166,13 +264,12 @@ def init_cross_attention(spec: AttnSpec, d_src: int,
 
 def cross_kv(p, src: torch.Tensor, spec: AttnSpec):
     """Cross K/V (B, T, K, hd) each from source embeddings (B, T, d_src)."""
-    B, T, _ = src.shape
     K, hd = spec.num_kv_heads, spec.head_dim
     k = src @ p["wk"]
     v = src @ p["wv"]
     if spec.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return k.reshape(B, T, K, hd), v.reshape(B, T, K, hd)
+    return _split_heads(k, K, hd), _split_heads(v, K, hd)
 
 
 def cross_attention_forward(p, x: torch.Tensor, kv, spec: AttnSpec
@@ -184,8 +281,8 @@ def cross_attention_forward(p, x: torch.Tensor, kv, spec: AttnSpec
     q = x @ p["wq"]
     if spec.qkv_bias:
         q = q + p["bq"]
-    k, v = kv
-    out = sdpa(q.reshape(B, S, H, hd), k, v, None)
+    q = _split_heads(q, H, hd)
+    out = sdpa(q, *_kv_for_shards(q, *kv), None)
     y = out.reshape(B, S, -1) @ p["wo"]
     if "gate" in p:
         y = torch.tanh(p["gate"]) * y
@@ -250,15 +347,15 @@ def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
     latent, k_rope = _mla_latent(p, x, m, positions)
     k_nope = (latent @ p["wk_b"]).reshape(B, S, H, m.qk_nope_head_dim)
     v = (latent @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
-    scores = torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
-    scores += torch.einsum("bshr,btr->bhst", q_rope, k_rope)
+    scores = einsum("bshn,bthn->bhst", q_nope, k_nope)
+    scores += einsum("bshr,btr->bhst", q_rope, k_rope)
     scores *= _mla_scale(m)
     if causal:
         i = torch.arange(S, device=x.device)
         scores.masked_fill_(i[None, :] > i[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     del scores
-    out = torch.einsum("bhst,bthv->bshv", w, v).reshape(B, S, -1)
+    out = einsum("bhst,bthv->bshv", w, v).reshape(B, S, -1)
     y = out @ p["wo"]
     if return_cache:
         return y, (latent, k_rope)
@@ -278,19 +375,19 @@ def mla_decode(p, x: torch.Tensor, pos: int, cache_latent: torch.Tensor,
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q_nope, q_rope = _mla_q(p, x, m, H, positions)       # (B,1,H,.)
     latent, k_rope = _mla_latent(p, x, m, positions)     # (B,1,kv_lora),...
-    cache_latent[:, pos] = latent[:, 0]
-    cache_krope[:, pos] = k_rope[:, 0]
+    _write_slot(cache_latent, pos, latent[:, 0])
+    _write_slot(cache_krope, pos, k_rope[:, 0])
     # absorb wk_b into the query:  q_lat[h] = q_nope[h] @ wk_b[:, h, :].T
     wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
-    q_lat = torch.einsum("bshn,lhn->bshl", q_nope, wk_b)  # (B,1,H,kv_lora)
-    scores = (torch.einsum("bshl,btl->bhst", q_lat, cache_latent)
-              + torch.einsum("bshr,btr->bhst", q_rope, cache_krope))
+    q_lat = einsum("bshn,lhn->bshl", q_nope, wk_b)  # (B,1,H,kv_lora)
+    scores = (einsum("bshl,btl->bhst", q_lat, cache_latent)
+              + einsum("bshr,btr->bhst", q_rope, cache_krope))
     scores = scores * _mla_scale(m)
     valid = torch.arange(W, device=x.device) <= pos
     scores = scores.masked_fill(~valid, NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    ctx_lat = torch.einsum("bhst,btl->bshl", w, cache_latent)
+    ctx_lat = einsum("bhst,btl->bshl", w, cache_latent)
     wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
-    out = torch.einsum("bshl,lhv->bshv", ctx_lat, wv_b).reshape(B, 1, -1)
+    out = einsum("bshl,lhv->bshv", ctx_lat, wv_b).reshape(B, 1, -1)
     y = out @ p["wo"]
     return y, (cache_latent, cache_krope)

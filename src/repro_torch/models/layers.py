@@ -28,7 +28,13 @@ from torch import nn
 class ParamTree(nn.Module):
     """A nested dict of tensors held as (trainable) parameters of a module
     tree.  ``p["w"]`` and ``"w" in p`` work as on the dict, so the
-    functional apply code takes either."""
+    functional apply code takes either.
+
+    ``use`` (None unless set, see ``launch.sharding.shard_model``) maps a
+    parameter to the tensor the apply code computes with: under FSDP the
+    parameter gathered over "data" for this use."""
+
+    use = None
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -39,7 +45,10 @@ class ParamTree(nn.Module):
                 self.register_parameter(k, nn.Parameter(v))
 
     def __getitem__(self, key: str):
-        return getattr(self, key)
+        v = getattr(self, key)
+        if self.use is not None and isinstance(v, nn.Parameter):
+            return self.use(v)
+        return v
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules

@@ -59,14 +59,17 @@ dict (the reference returns a new pytree).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import (DeviceLike, implicit_replication,
+                                resolve_device, settle)
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -120,12 +123,13 @@ def _block_forward(p, x, positions, cfg: ArchConfig, *, causal=True,
                                          AttnSpec.from_cfg(cfg),
                                          causal=causal, window=window,
                                          return_cache=True)
+    a = settle(a)
     if cfg.parallel_block:
         m, aux = _ffn(p, h, cfg)
-        return x + a + m, aux, cache
+        return x + a + settle(m), aux, cache
     x = x + a
     m, aux = _ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)
-    return x + m, aux, cache
+    return x + settle(m), aux, cache
 
 
 def _block_decode(p, x, pos: int, kcache, vcache, cfg: ArchConfig, *,
@@ -138,10 +142,11 @@ def _block_decode(p, x, pos: int, kcache, vcache, cfg: ArchConfig, *,
     else:
         a, _ = att.attention_decode(p["attn"], h, pos, kcache, vcache,
                                     AttnSpec.from_cfg(cfg), window=window)
+    a = settle(a)
     if cfg.parallel_block:
-        return x + a + _ffn(p, h, cfg)[0]
+        return x + a + settle(_ffn(p, h, cfg)[0])
     x = x + a
-    return x + _ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)[0]
+    return x + settle(_ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)[0])
 
 
 def _init_cross_block(cfg: ArchConfig, gen, dev) -> Dict:
@@ -160,10 +165,11 @@ def _cross_block(cp, x, ckv, cfg: ArchConfig):
     """The vlm's cross layer over the image K/V ``ckv``:
     x + tanh(gate) * attn, then x + tanh(gate_mlp) * mlp."""
     h = apply_norm(cp["norm1"], x, cfg.norm)
-    x = x + att.cross_attention_forward(cp["attn"], h, ckv,
-                                        AttnSpec.from_cfg(cfg))
+    x = x + settle(att.cross_attention_forward(cp["attn"], h, ckv,
+                                               AttnSpec.from_cfg(cfg)))
     h2 = apply_norm(cp["norm2"], x, cfg.norm)
-    return x + torch.tanh(cp["gate_mlp"]) * apply_mlp(cp["mlp"], h2, cfg.act)
+    return x + torch.tanh(cp["gate_mlp"]) * settle(
+        apply_mlp(cp["mlp"], h2, cfg.act))
 
 
 def _init_decoder_block(cfg: ArchConfig, gen, dev) -> Dict:
@@ -180,10 +186,11 @@ def _cross_ffn(lp, x, ckv, cfg: ArchConfig):
     """A decoder block after its self-attention: cross-attention over the
     encoder's K/V ``ckv``, then the MLP, each pre-norm with its residual."""
     hx = apply_norm(lp["norm_x"], x, cfg.norm)
-    x = x + att.cross_attention_forward(lp["cross"], hx, ckv,
-                                        AttnSpec.from_cfg(cfg))
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg.norm),
-                         cfg.act)
+    x = x + settle(att.cross_attention_forward(lp["cross"], hx, ckv,
+                                               AttnSpec.from_cfg(cfg)))
+    return x + settle(apply_mlp(lp["mlp"],
+                                apply_norm(lp["norm2"], x, cfg.norm),
+                                cfg.act))
 
 
 def _block_forward_cross(lp, x, positions, ckv, cfg: ArchConfig, *,
@@ -194,7 +201,7 @@ def _block_forward_cross(lp, x, positions, ckv, cfg: ArchConfig, *,
     a, kv = att.attention_forward(lp["attn"], h, positions,
                                   AttnSpec.from_cfg(cfg), causal=True,
                                   window=window, return_cache=True)
-    return _cross_ffn(lp, x + a, ckv, cfg), kv
+    return _cross_ffn(lp, x + settle(a), ckv, cfg), kv
 
 
 def _mamba_layer(cfg: ArchConfig, gen, dev) -> ParamTree:
@@ -205,8 +212,8 @@ def _mamba_layer(cfg: ArchConfig, gen, dev) -> ParamTree:
 def _mamba_block(lp, x, cfg: ArchConfig):
     """Pre-norm Mamba block with its residual over the full sequence (the
     training forward: no caches)."""
-    return x + ssm_lib.mamba_forward(lp["mamba"],
-                                     apply_norm(lp["norm"], x, cfg.norm), cfg)
+    return x + settle(ssm_lib.mamba_forward(
+        lp["mamba"], apply_norm(lp["norm"], x, cfg.norm), cfg))
 
 
 def _mamba_step(lp, x, caches, cfg: ArchConfig, *, decode: bool):
@@ -222,7 +229,7 @@ def _mamba_step(lp, x, caches, cfg: ArchConfig, *, decode: bool):
                                                       return_state=True)
     for dst, src in zip(caches, (st1, cx1, cbc1)):
         dst.copy_(src)
-    return x + y
+    return x + settle(y)
 
 
 def _run(fn, remat: bool, *args):
@@ -231,6 +238,20 @@ def _run(fn, remat: bool, *args):
     if remat:
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def _on_mesh(fn):
+    """Run a ``Model`` method under ``implicit_replication`` once the model
+    is sharded (``launch.sharding.shard_model``): the positions, masks
+    and zeros it builds itself are plain tensors, replicated over the
+    mesh beside the DTensor parameters."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        if self.mesh is None:
+            return fn(self, *args, **kwargs)
+        with implicit_replication():
+            return fn(self, *args, **kwargs)
+    return run
 
 
 def _ring_place(kv: torch.Tensor, S: int, W: int) -> torch.Tensor:
@@ -250,9 +271,12 @@ def _ring_place(kv: torch.Tensor, S: int, W: int) -> torch.Tensor:
 
 
 class Model(nn.Module):
-    """The LM on one device.  Weights are drawn at construction from a
-    ``torch.Generator`` on ``device`` seeded with ``seed`` (the
-    reference's distributions), or left uninitialised with
+    """The LM on one device, or over a mesh once
+    ``launch.sharding.shard_model`` has made its parameters DTensors
+    (``mesh`` and ``param_use`` set; the same methods then run on each
+    rank's shards, see ``launch/sharding.py``).  Weights are drawn at
+    construction from a ``torch.Generator`` on ``device`` seeded with
+    ``seed`` (the reference's distributions), or left uninitialised with
     ``init=False`` (for loading, see ``convert.lm_params_from_jax``)."""
 
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
@@ -262,6 +286,8 @@ class Model(nn.Module):
             raise ValueError(f"unknown model family {cfg.family!r} "
                              f"({cfg.name}); known: {list(FAMILIES)}")
         self.cfg = cfg
+        self.mesh = None        # set by launch.sharding.shard_model
+        self.param_use = None   # ditto (ParamTree.use)
         dev = resolve_device(device)
         gen = None
         if init:
@@ -319,12 +345,25 @@ class Model(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.unembed(apply_norm(self.final_norm, x, self.cfg.norm))
 
+    @_on_mesh
     def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (B, C, d) -> float32 logits (B, C, V); pairs with
         ``forward(return_hidden=True)``."""
-        w = self.embed.T if self.unembed_weight is None else \
-            self.unembed_weight
+        w = self._use(self.embed).T if self.unembed_weight is None else \
+            self._use(self.unembed_weight)
         return (hidden @ w).float()
+
+    def _use(self, p: torch.Tensor) -> torch.Tensor:
+        """A top-level parameter as computed with (``ParamTree.use``)."""
+        return p if self.param_use is None else self.param_use(p)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings (B, S, d).  ``F.embedding`` is the lookup that
+        DTensor shards over a vocab-sharded ``embed`` (each rank looks up
+        its rows, the rest masked, then one all-reduce); the partial sum is
+        reduced here (``settle``), before the activations are read
+        twice."""
+        return settle(F.embedding(tokens, self._use(self.embed)))
 
     def _window_for(self, max_len: int) -> int:
         cfg = self.cfg
@@ -393,6 +432,7 @@ class Model(nn.Module):
                 for i, b in enumerate(self.blocks)]
 
     # ----- training forward ---------------------------------------------------
+    @_on_mesh
     def forward(self, batch, *, remat: bool = False, window: int = 0,
                 return_hidden: bool = False):
         """Full-sequence forward of the reference's ``Model.forward`` ->
@@ -408,7 +448,7 @@ class Model(nn.Module):
         tokens = self._tokens(batch)
         B, S = tokens.shape
         src = self._cross_source(batch, remat)
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=F32, device=self.device)
         fam = cfg.family
@@ -457,6 +497,7 @@ class Model(nn.Module):
 
     # ----- caches -------------------------------------------------------------
     @torch.no_grad()
+    @_on_mesh
     def init_cache(self, batch_size: int, max_len: int,
                    batch: Optional[dict] = None) -> Dict:
         """Zero cache for ``decode_step``.  For the vlm and audio archs a
@@ -478,7 +519,17 @@ class Model(nn.Module):
     def _zero_cache(self, batch_size: int, max_len: int,
                     cross_len: Optional[int] = None) -> Dict:
         """Zero cache; ``cross_len`` is the cross K/V's source length
-        (default: the config's)."""
+        (default: the config's).  A sharded model's cache is laid out by
+        ``launch.sharding.cache_shardings``."""
+        cache = self._plain_zero_cache(batch_size, max_len, cross_len)
+        if self.mesh is None:
+            return cache
+        from repro_torch.launch import sharding as shd
+        return shd.shard_tree(cache, self.mesh, shd.cache_shardings(
+            self.mesh, cache, self.cfg, batch_size))
+
+    def _plain_zero_cache(self, batch_size: int, max_len: int,
+                          cross_len: Optional[int]) -> Dict:
         cfg, dev = self.cfg, self.device
         B = batch_size
         W = self._window_for(max_len) or max_len
@@ -529,6 +580,7 @@ class Model(nn.Module):
 
     # ----- prefill ------------------------------------------------------------
     @torch.no_grad()
+    @_on_mesh
     def prefill(self, batch, max_len: int):
         """Run the prompt, return (last-token logits (B,V), cache at pos=S).
         ``batch`` is ``{"tokens": (B, S)}`` (or the tokens themselves);
@@ -538,7 +590,7 @@ class Model(nn.Module):
         tokens = self._tokens(batch)
         B, S = tokens.shape
         src = self._cross_source(batch)
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
         cache = self._zero_cache(B, max_len,
                                  None if src is None else src.shape[1])
@@ -592,11 +644,12 @@ class Model(nn.Module):
 
     # ----- decode -------------------------------------------------------------
     @torch.no_grad()
+    @_on_mesh
     def decode_step(self, cache: Dict, tokens):
         """tokens: (B, 1) -> (logits (B,V) fp32, cache updated in place)."""
         cfg = self.cfg
         pos = int(cache["pos"])
-        x = self.embed[self._tokens(tokens)]
+        x = self._embed(self._tokens(tokens))
         if cfg.family in ("dense", "moe", "vlm", "audio"):
             W = cache["latent"].shape[2] if cfg.mla is not None else \
                 cache["k"].shape[-3]
@@ -619,8 +672,8 @@ class Model(nn.Module):
                 h = apply_norm(lp["norm1"], x, cfg.norm)
                 a, _ = att.attention_decode(lp["attn"], h, pos, ca, cb, spec,
                                             window=window)
-                x = _cross_ffn(lp, x + a, (cache["cross_k"][i],
-                                           cache["cross_v"][i]), cfg)
+                x = _cross_ffn(lp, x + settle(a), (cache["cross_k"][i],
+                                                   cache["cross_v"][i]), cfg)
         elif cfg.family == "ssm":
             for lp, caches in self._mamba_layers(cache):
                 x = _mamba_step(lp, x, caches, cfg, decode=True)

@@ -11,19 +11,26 @@ expert's buffer is the token-major running count over the group's
 gate zeroed).  Expert weights keep the reference's ``(E, fan_in,
 fan_out)`` layout.
 
-The reference pins the dispatched activations to an expert-parallel mesh
-layout (``_ep_constraint``), which is a no-op without a JAX mesh; the port
-runs on one device and leaves it out.  The products are plain PyTorch, as
-the reference leaves them to XLA (no Pallas kernel).
+The reference can pin the dispatched activations to an expert-parallel
+mesh layout (``_ep_constraint``, groups over "data", experts over
+"model"; opt-in there).  On plain tensors there is no layout; on DTensors
+(``launch/sharding.py``) the port always pins ``xe`` and ``ye`` so
+(``_layout``): left to itself DTensor may split the capacity dim over
+"data" unevenly, which the combine's flatten cannot take; and the router
+logits' gradient is pinned to the tokens' own layout.  Values do not
+change.  The products are plain PyTorch, as the reference leaves them to
+XLA (no Pallas kernel).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.device import einsum, is_dtensor, relayout
 from repro_torch.models.layers import act_fn, dense_init
 
 GROUP_SIZE = 256
@@ -75,6 +82,38 @@ def route(probs: torch.Tensor, K: int, C: int):
     return gate_vals * keep.to(gate_vals.dtype), idx, pos, keep
 
 
+def _layout(t: torch.Tensor, dims) -> torch.Tensor:
+    """A DTensor laid out with ``dims`` ({mesh axis: tensor dim}) where the
+    axes on a tensor dim (more than one rank each) divide it together,
+    every other mesh dim replicated, its gradient brought back to the
+    same layout (``device.relayout``); a plain tensor unchanged."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    want = {name: dims.get(name) for name, size in
+            zip(mesh.mesh_dim_names, mesh.shape) if size > 1}
+    for d in set(want.values()) - {None}:
+        ranks = math.prod(size for name, size in zip(mesh.mesh_dim_names,
+                                                      mesh.shape)
+                          if want.get(name) == d)
+        if t.shape[d] % ranks:
+            want = {k: (None if v == d else v) for k, v in want.items()}
+    return relayout(t, [Replicate() if want.get(name) is None
+                        else Shard(want[name])
+                        for name in mesh.mesh_dim_names])
+
+
+# the dispatched activations (G, E, C, d): groups over the batch axes,
+# experts over "model" (the reference's _ep_constraint)
+_EP = {"pod": 0, "data": 0, "model": 1}
+# router logits and probabilities (G, gs, E): groups over the batch axes;
+# their gradient summed over the experts' ranks (else DTensor may split
+# the tokens over "model", and the router's product then merges two split
+# dims)
+_TOKENS = {"pod": 0, "data": 0}
+
+
 def apply_moe(p, x: torch.Tensor, mo: MoEConfig, act: str):
     """x: (B, S, d) -> (y, aux_loss)."""
     B, S, d = x.shape
@@ -86,29 +125,33 @@ def apply_moe(p, x: torch.Tensor, mo: MoEConfig, act: str):
     fn = act_fn(act)
 
     xg = x.reshape(G, gs, d)
-    probs = torch.softmax((xg @ p["router"]).float(), dim=-1)  # (G, gs, E)
+    probs = torch.softmax(_layout(xg @ p["router"], _TOKENS).float(),
+                          dim=-1)                             # (G, gs, E)
     gate_vals, idx, pos, keep = route(probs, K, C)
 
-    # (G, gs, E, C) dispatch/combine, one choice k at a time
-    dispatch = x.new_zeros((G, gs, E, C))
-    combine = x.new_zeros((G, gs, E, C))
+    # (G, gs, E, C) dispatch/combine, one choice k at a time, summed from
+    # the first (no zeros to start from: a DTensor's new_zeros would be
+    # replicated at the global size)
     for k in range(K):
         oe = F.one_hot(idx[..., k], E).to(x.dtype)           # (G, gs, E)
         oc = F.one_hot(torch.where(keep[..., k], pos[..., k], C),
                        C + 1).to(x.dtype)[..., :-1]           # (G, gs, C)
         d_k = oe[..., None] * oc[..., None, :]
-        dispatch += d_k
-        combine += d_k * gate_vals[..., k, None, None].to(x.dtype)
+        c_k = d_k * gate_vals[..., k, None, None].to(x.dtype)
+        if k == 0:
+            dispatch, combine = d_k, c_k
+        else:
+            dispatch, combine = dispatch + d_k, combine + c_k
 
     # the two one-hot products under one profiler range, so a trace reads
     # their device time apart from the expert GEMMs
     with torch.profiler.record_function("moe_dispatch_combine"):
-        xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)    # (G, E, C, d)
-    h = fn(torch.einsum("gecd,edf->gecf", xe, p["w_gate"])) \
-        * torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # (G, E, C, d)
+        xe = _layout(einsum("gtec,gtd->gecd", dispatch, xg), _EP)
+    h = fn(einsum("gecd,edf->gecf", xe, p["w_gate"])) \
+        * einsum("gecd,edf->gecf", xe, p["w_up"])
+    ye = _layout(einsum("gecf,efd->gecd", h, p["w_down"]), _EP)
     with torch.profiler.record_function("moe_dispatch_combine"):
-        y = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(B, S, d)
+        y = einsum("gtec,gecd->gtd", combine, ye).reshape(B, S, d)
 
     if "shared" in p:
         sh = p["shared"]

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import einsum, is_dtensor
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import (F32, dense_init, gated_rmsnorm,
                                        init_norm)
@@ -56,13 +57,42 @@ def init_mamba_block(cfg: ArchConfig, gen: Optional[torch.Generator],
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  d_conv: int) -> torch.Tensor:
-    """Depthwise causal conv over seq. x: (B, S, C), w: (C, d_conv)."""
+    """Depthwise causal conv over seq. x: (B, S, C), w: (C, d_conv).  A
+    DTensor ``x`` is convolved on each rank's shard (``_conv_shards``)."""
+    if is_dtensor(x):
+        return _conv_shards(x, w, b, d_conv)
     pad = F.pad(x, (0, 0, d_conv - 1, 0))
     acc = torch.zeros_like(x) + b.to(x.dtype)
     S = x.shape[1]
     for i in range(d_conv):
         acc = acc + pad[:, i:i + S, :] * w[:, i]
     return F.silu(acc)
+
+
+def _conv_shards(x, w, b, d_conv: int) -> torch.Tensor:
+    """``_causal_conv`` of a DTensor: the conv runs along the sequence
+    (never split) and per channel, so each rank convolves its rows and
+    channels of x with its channels of w and b (DTensor's pad of the
+    sequence fails in some versions).  Per mesh dim: x split over the
+    batch or the channels (w and b split alike), or replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, R = x.device_mesh, Replicate()
+    px, pw, gw = [], [], []
+    for p in x.placements:
+        if p.is_shard() and p.dim in (0, 2):
+            px.append(Shard(p.dim))
+            pw.append(Shard(0) if p.dim == 2 else R)
+            # over the batch, each rank's gradient of w and b is a part
+            gw.append(Shard(0) if p.dim == 2 else Partial())
+        else:
+            px.append(R)
+            pw.append(R)
+            gw.append(R)
+    y = _causal_conv(x.redistribute(mesh, px).to_local(), *(
+        t.redistribute(mesh, pw).to_local(grad_placements=gw)
+        for t in (w, b)), d_conv)
+    return DTensor.from_local(y.contiguous(), mesh, px, run_check=False,
+                              shape=x.shape, stride=x.contiguous().stride())
 
 
 def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
@@ -136,7 +166,7 @@ def mamba_decode(p, x: torch.Tensor, state: Tuple, cfg: ArchConfig):
     upd = (dtf[:, :, None, None] * Bv[:, None, None, :]
            * xs.float()[:, :, :, None])
     ssm_state = decay[:, :, None, None] * ssm_state + upd
-    y = torch.einsum("bn,bhpn->bhp", Cv, ssm_state)
+    y = einsum("bn,bhpn->bhp", Cv, ssm_state)
     y = y + p["D"][None, :, None] * xs.float()
     y = y.reshape(B, 1, d_inner).to(x.dtype)
     y = gated_rmsnorm(p["norm"], y, z[:, None, :])

@@ -16,6 +16,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import is_dtensor
+
 
 @dataclass
 class AdamWState:
@@ -27,7 +29,9 @@ class AdamWState:
 def adamw_init(params: Sequence[torch.Tensor]) -> AdamWState:
     params = list(params)
     dev = params[0].device if params else torch.device("cpu")
-    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: a sharded parameter (DTensor) gets moments sharded alike
+    zeros = [torch.zeros_like(p, dtype=torch.float32,
+                              memory_format=torch.contiguous_format)
              for p in params]
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=zeros, nu=[z.clone() for z in zeros])
@@ -78,6 +82,10 @@ def adamw_update(params: Sequence[torch.Tensor],
     for dst, new in ((mu, m_new), (nu, v_new), (params, p_new)):
         if where is not None:
             new = [torch.where(where, n, o) for n, o in zip(new, dst)]
-        torch._foreach_copy_(dst, new)
+        if dst and is_dtensor(dst[0]):
+            for d, n in zip(dst, new):   # DTensor has no _foreach_copy_
+                d.copy_(n)
+        else:
+            torch._foreach_copy_(dst, new)
     state.step.copy_(step if where is None
                      else torch.where(where, step, state.step))

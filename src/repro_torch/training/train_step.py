@@ -16,9 +16,16 @@ waits on the device for it.
 On the card the flash and SSD kernels run the forward of every attention
 and Mamba layer; their backward differentiates the plain versions
 (``kernels/*/ops.py``).
+
+A model sharded by ``launch.sharding.shard_model`` trains through the
+same code: its parameters, gradients and AdamW moments (``zeros`` of the
+parameters' shapes, so sharded like them) are DTensors, the loss and the
+update run under ``implicit_replication``, and the batch may be sharded
+too (``launch.sharding.batch_shardings``).
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -26,7 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, implicit_replication, is_dtensor
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm)
@@ -61,10 +68,76 @@ def _labels(model: Model, batch) -> torch.Tensor:
 
 def _nll_sums(logits: torch.Tensor, labels: torch.Tensor):
     """(sum of the next-token NLL over labels >= 0, their count)."""
-    logp = torch.log_softmax(logits, dim=-1)
     mask = (labels >= 0).to(torch.float32)
-    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    if is_dtensor(logits):
+        nll = _VocabNLL.apply(logits, labels.clamp_min(0))
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
     return torch.sum(nll * mask), torch.sum(mask)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """The NLL of DTensor logits (B, S, V), sharded over the vocab or not,
+    computed on each rank's local shard: log-sum-exp from a max and a sum
+    reduced over the vocab's mesh dims ((B, S) each), less the target
+    logit, which only the rank holding it reads; the gradient, softmax
+    less the one-hot target, is local.  DTensor's own log-softmax would
+    gather the logits over the vocab, and its gather's backward a (B, S,
+    V) zero tensor.  The same formula as ``log_softmax`` and ``gather``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        mesh, last = logits.device_mesh, logits.dim() - 1
+        place = [Replicate() if p.is_partial() else p
+                 for p in logits.placements]
+        logits = logits.redistribute(mesh, place)
+        rows = [p if p.is_shard() and p.dim < last else Replicate()
+                for p in place]
+        vocab = [p.is_shard() and p.dim == last for p in place]
+
+        def reduce(local, op):
+            return DTensor.from_local(
+                local, mesh, [Partial(op) if v else r
+                              for v, r in zip(vocab, rows)],
+                run_check=False).redistribute(mesh, rows).to_local()
+        L = logits.to_local()
+        lab = labels.redistribute(mesh, rows).to_local()
+        m = reduce(L.amax(dim=-1), "max")
+        lse = torch.log(reduce(torch.exp(L - m[..., None]).sum(dim=-1),
+                               "sum")) + m
+        # this rank's first vocab row: the vocab's mesh dims split it in
+        # turn, each in torch.chunk's pieces
+        start, size = 0, logits.shape[last]
+        for n, c, v in zip(mesh.shape, mesh.get_coordinate(), vocab):
+            if v:
+                piece = -(-size // n)
+                start += c * piece
+                size = max(0, min(piece, size - c * piece))
+        idx = lab - start
+        inside = (idx >= 0) & (idx < L.shape[-1])
+        idx = idx.clamp(0, max(L.shape[-1] - 1, 0))[..., None]
+        zero = torch.zeros((), dtype=L.dtype, device=L.device)
+        target = reduce(torch.where(inside, L.gather(-1, idx)[..., 0], zero),
+                        "sum")
+        ctx.save_for_backward(L, lse, idx, inside)
+        ctx.meta = (mesh, place, rows, logits.shape, logits.stride())
+        return DTensor.from_local(lse - target, mesh, rows, run_check=False,
+                                  shape=labels.shape,
+                                  stride=labels.contiguous().stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+        L, lse, idx, inside = ctx.saved_tensors
+        mesh, place, rows, shape, stride = ctx.meta
+        g = grad.redistribute(mesh, rows).to_local()
+        dl = torch.exp(L - lse[..., None]) * g[..., None]
+        dl.scatter_add_(-1, idx, torch.where(inside, -g, torch.zeros_like(g))
+                        [..., None])
+        return DTensor.from_local(dl, mesh, place, run_check=False,
+                                  shape=shape, stride=stride), None
 
 
 def lm_loss(model: Model, batch, *, remat: bool = False):
@@ -103,6 +176,11 @@ def chunked_lm_loss(model: Model, batch, *, n_chunks: int,
     return loss + aux, (loss, aux)
 
 
+def _on_mesh(model: Model):
+    """``implicit_replication`` for a sharded model, else nothing."""
+    return nullcontext() if model.mesh is None else implicit_replication()
+
+
 def loss_and_grads(model: Model, batch, *, remat: bool = False,
                    loss_chunks: int = 0
                    ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
@@ -111,7 +189,7 @@ def loss_and_grads(model: Model, batch, *, remat: bool = False,
     loss does not reach, as ``jax.grad`` gives), the loss and the aux
     loss."""
     params = list(model.parameters())
-    with torch.enable_grad():
+    with torch.enable_grad(), _on_mesh(model):
         if loss_chunks:
             total, (loss, aux) = chunked_lm_loss(model, batch,
                                                  n_chunks=loss_chunks,
@@ -137,12 +215,13 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
             raise ValueError("the state was made for another model")
         grads, loss, aux = loss_and_grads(model, batch, remat=remat,
                                           loss_chunks=loss_chunks)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
         lr = cosine_schedule(state.step, peak_lr=peak_lr,
                              warmup_steps=warmup_steps,
                              total_steps=total_steps)
-        adamw_update(state.params, grads, state.opt, lr=lr,
-                     weight_decay=weight_decay)
+        with _on_mesh(model):
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            adamw_update(state.params, grads, state.opt, lr=lr,
+                         weight_decay=weight_decay)
         state.step += 1
         return state, {"loss": loss, "aux_loss": aux, "grad_norm": gnorm,
                        "lr": lr}

@@ -1089,3 +1089,117 @@ def test_lm_train_cli_on_the_card(dev):
         text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "device=cuda" in out.stdout and "step    2" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the mesh slice: the flash and SSD custom ops on CUDA DTensors
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A one-rank NCCL group (a local store) and its (1, 1) mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield make_host_mesh(model=1, data=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _weighted_grads(out, inputs, seed):
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    w = torch.randn(out.shape, generator=gen, device=out.device)
+    if hasattr(out, "full_tensor"):
+        from repro_torch.launch.sharding import P, distribute
+        w = distribute(w, out.device_mesh, P())
+        w = w.redistribute(out.device_mesh, out.placements)
+    return torch.autograd.grad((w * out).sum(), inputs)
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+@pytest.mark.parametrize("spec", [("data", None, None, None),
+                                  (None, None, "model", None)])
+def test_flash_op_on_cuda_dtensors_equals_the_kernel(one_rank_mesh, spec):
+    """Batch- or head-sharded q, k, v on the one-rank mesh: the custom op
+    launches the kernel once on the local shard; output equal to the plain
+    tensors' kernel call, gradients (the plain recompute on the local
+    shards) within 1e-6 of its."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.sharding import P, distribute
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for shape in ((2, 128, 8, 64), (2, 128, 4, 64),
+                             (2, 128, 4, 64)))
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = fa.flash_attention(*plain, causal=True, window=32)
+    want_g = _weighted_grads(want, plain, 1)
+    sharded = [distribute(t, one_rank_mesh, P(*spec)).requires_grad_()
+               for t in (q, k, v)]
+    before = fa.LAUNCHES
+    got = fa.flash_attention(*sharded, causal=True, window=32)
+    assert fa.LAUNCHES == before + 1
+    assert got.placements == sharded[0].placements
+    assert torch.equal(_full(got), want)
+    got_g = _weighted_grads(got, sharded, 1)
+    assert fa.LAUNCHES == before + 1          # the backward launches nothing
+    for g, w in zip(got_g, want_g):
+        torch.testing.assert_close(_full(g), w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("spec", [("data",), ("model",)])
+def test_ssd_op_on_cuda_dtensors_equals_the_kernel(one_rank_mesh, spec):
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.launch.sharding import P, distribute
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, nh, hd, N = 2, 128, 4, 32, 16
+    xh = torch.randn(B, S, nh, hd, generator=gen, device=dev)
+    dt = torch.rand(B, S, nh, generator=gen, device=dev) * 0.1
+    A = -torch.rand(nh, generator=gen, device=dev)
+    Bm = torch.randn(B, S, N, generator=gen, device=dev)
+    Cm = torch.randn(B, S, N, generator=gen, device=dev)
+    plain = [t.clone().requires_grad_() for t in (xh, dt, A, Bm, Cm)]
+    want_y, want_f = sd.ssd_scan(*plain, 64)
+    want_g = _weighted_grads(want_y, plain, 1)
+    axis = spec[0]
+    layout = ({"xh": P(axis), "dt": P(axis), "A": P(), "B": P(axis),
+               "C": P(axis)} if axis == "data" else
+              {"xh": P(None, None, axis), "dt": P(None, None, axis),
+               "A": P(axis), "B": P(), "C": P()})
+    sharded = [distribute(t, one_rank_mesh, layout[n]).requires_grad_()
+               for t, n in zip((xh, dt, A, Bm, Cm), layout)]
+    before = sd.LAUNCHES
+    y, final = sd.ssd_scan(*sharded, 64)
+    assert sd.LAUNCHES == before + 1
+    assert torch.equal(_full(y), want_y) and torch.equal(_full(final),
+                                                         want_f)
+    got_g = _weighted_grads(y, sharded, 1)
+    assert sd.LAUNCHES == before + 1
+    for g, w in zip(got_g, want_g):
+        torch.testing.assert_close(_full(g), w, rtol=1e-6, atol=1e-6)
+
+
+def test_custom_ops_fake_implementations_on_cuda_launch_nothing(dev):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    with FakeTensorMode():
+        q = torch.empty(8, 1024, 16, 64, device=dev)
+        out = fa.flash_attention(q, q, q)
+        xh = torch.empty(8, 1024, 32, 64, device=dev)
+        y, final = sd.ssd_scan(xh, torch.empty(8, 1024, 32, device=dev),
+                               torch.empty(32, device=dev),
+                               torch.empty(8, 1024, 128, device=dev),
+                               torch.empty(8, 1024, 128, device=dev), 256)
+    assert out.shape == q.shape and out.device.type == "cuda"
+    assert y.shape == xh.shape and final.shape == (8, 32, 64, 128)
+    assert (fa.LAUNCHES, sd.LAUNCHES) == (f0, s0)

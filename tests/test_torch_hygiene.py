@@ -51,7 +51,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
               "repro_torch.launch.shard_host",
               "repro_torch.selection", "repro_torch.selection.cascade",
               "repro_torch.selection.mct", "repro_torch.selection.hybrid",
-              "repro_torch.selection.frontier"):
+              "repro_torch.selection.frontier",
+              "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -315,6 +317,20 @@ def test_train_cli_raises_without_gpu_and_runs_on_cpu():
     out = subprocess.run(scn + ["--algo", "ppo", "--device", "cpu"],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "use --algo sac or td3" in out.stderr
+
+
+def test_mesh_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
+    """The meshes' device type follows ``resolve_device``; the dry-run CLI
+    without ``--device cpu`` raises (``test_torch_mesh_dryrun.py`` runs
+    it in a subprocess)."""
+    from repro_torch.launch import dryrun, mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: mesh._mesh(None, (1, 1), ("data", "model")),
+                 lambda: dryrun.main(["--arch", "qwen1.5-0.5b", "--shape",
+                                      "decode_32k"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not torch.distributed.is_initialized()
 
 
 def test_lm_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
