@@ -91,6 +91,21 @@ def implicit_replication():
         dispatcher._allow_implicit_replication = before
 
 
+def local_range(t: torch.Tensor, dim: int) -> tuple:
+    """``(start, size)`` of this rank's range of a DTensor's dim ``dim``:
+    each mesh dim that shards ``dim`` cuts the range it is given into
+    ``torch.chunk``'s pieces, in mesh-dim order (the whole dim for a
+    replicated one)."""
+    start, size = 0, t.shape[dim]
+    mesh = t.device_mesh
+    for m, (c, pl) in enumerate(zip(mesh.get_coordinate(), t.placements)):
+        if pl.is_shard() and pl.dim == dim:
+            piece = -(-size // mesh.size(m))
+            lo = min(c * piece, size)
+            start, size = start + lo, min(size - lo, piece)
+    return start, size
+
+
 def relayout(t: torch.Tensor, placements) -> torch.Tensor:
     """``t.redistribute(placements)`` for a DTensor, whose gradient goes
     back to ``t``'s placements (partial ones reduced: a gradient is never

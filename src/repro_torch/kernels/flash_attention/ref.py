@@ -7,7 +7,8 @@ in float32
 over the model's ``(B, S, H, hd)`` layout, GQA by grouping query
 heads over ``K`` key/value heads, masked scores set to ``NEG_INF`` and
 scale ``hd^-0.5``.  The CPU path of ``ops.flash_attention`` and the checks on
-the card use it; the model's one-token decode uses ``sdpa`` directly.
+the card use it; the model's one-token decode and cross-attention use
+``sdpa`` directly, with their own ``einsum`` for sharded tensors.
 """
 from __future__ import annotations
 
@@ -16,14 +17,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import einsum
-
 NEG_INF = -1e30
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (B|1, S, T) bool or None."""
+         mask: Optional[torch.Tensor], *, einsum=torch.einsum
+         ) -> torch.Tensor:
+    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (B|1, S, T) bool or None;
+    ``einsum`` computes both contractions."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K

@@ -159,6 +159,7 @@ def main(argv=None):
         combos.append((args.arch, args.shape))
 
     start_fake_group(multi_pod=args.multi_pod)
+    t0 = time.time()
     records = []
     try:
         for arch_id, shape_id in combos:
@@ -182,6 +183,7 @@ def main(argv=None):
     finally:
         torch.distributed.destroy_process_group()
     n_ok = sum(r["status"] == "ok" for r in records)
+    print(f"[dryrun] wall {time.time() - t0:.1f} s")
     print(f"[dryrun] {n_ok}/{len(records)} combos OK")
     return 0 if n_ok == len(records) else 1
 

@@ -24,6 +24,32 @@ indexes them as the reference does.
 Modes:
   tp  — tensor-parallel only (serving; weights replicated over "data")
   2d  — FSDP x TP (training; the non-"model" big dim shards over "data")
+
+Where the layout decisions live.  This module places the parameters,
+caches and batches; DTensor's own propagation places what follows from
+them, except where the model pins or redoes it:
+
+- ``device.py``: ``einsum`` (every einsum of the model on local shards,
+  one split letter per mesh dim: DTensor cannot merge two dims split
+  over two mesh dims), ``relayout`` (a redistribute whose gradient comes
+  back to the same layout), ``settle`` (partial sums reduced),
+  ``local_range`` (a rank's range of a split dim);
+- ``models/model.py``: ``_on_mesh`` (plain tensors it builds count as
+  replicated), ``settle`` after each sublayer, ``param_use`` in ``2d``
+  (``models/layers.py`` ``ParamTree.use``: each weight use gathers over
+  "data" first);
+- ``models/attention.py``: heads never cut (``_split_heads``), GQA k/v
+  repeated to whole groups per rank (``_kv_for_shards``), decode q
+  against a sequence-split cache (``_q_for_cache``) and its slot write
+  (``_write_slot``);
+- ``models/moe.py``: ``_layout`` (the reference's ``_ep_constraint``:
+  groups over the batch axes, experts over "model");
+- ``models/ssm.py``: ``_conv_shards`` (the Mamba conv on local shards);
+- ``training/train_step.py``: ``_VocabNLL`` (the NLL over a
+  vocab-split last dim); ``optim/adamw.py``: moments laid out as the
+  parameters;
+- the kernels' ``ops.py``: the custom ops' sharding rules (batch, or
+  heads where they divide).
 """
 from __future__ import annotations
 

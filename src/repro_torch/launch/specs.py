@@ -57,32 +57,6 @@ def _sharded_batch(mesh, batch: Dict, B: int) -> Dict:
     return shd.shard_tree(batch, mesh, shd.batch_shardings(mesh, batch, B))
 
 
-def _strided_shard_sizes_off_fake() -> None:
-    """DTensor's ``_StridedShard.local_shard_size_and_offset`` (a flatten
-    of two dims sharded over two mesh axes, as in the attention
-    einsums' batch dims) counts its local rows by building an index
-    tensor with ``torch.arange``, splitting it and reading it back
-    (``tolist``).  Under ``FakeTensorMode`` that tensor is fake and the
-    read raises (``DataDependentOutputException``).  Run it with every
-    dispatch mode off (the fake mode and the counter of
-    ``roofline.measure``): it is host bookkeeping, the same on fake and
-    real tensors, and no operator of the program."""
-    try:
-        from torch.distributed.tensor.placement_types import _StridedShard
-    except ImportError:
-        return
-    from torch.utils._python_dispatch import _disable_current_modes
-    fn = _StridedShard.local_shard_size_and_offset
-    if getattr(fn, "_off_fake", False):
-        return
-
-    def off_fake(*args, **kwargs):
-        with _disable_current_modes():
-            return fn(*args, **kwargs)
-    off_fake._off_fake = True
-    _StridedShard.local_shard_size_and_offset = off_fake
-
-
 def build_dryrun(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                  remat: bool = True,
                  param_mode: str = "") -> Tuple[Callable, Tuple]:
@@ -91,7 +65,6 @@ def build_dryrun(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     moments sharded like the parameters, ``fn(state, batch)``; a prefill,
     ``fn(model, batch)``; or a one-token decode against a ``seq_len``
     cache, ``fn(model, cache, tokens)``."""
-    _strided_shard_sizes_off_fake()
     fake = FakeTensorMode()
     dev = torch.device(mesh.device_type)
     B, S = shape.global_batch, shape.seq_len

@@ -35,8 +35,8 @@ is original head h // G).  The cache keeps the K original heads.  Where r
 does not divide G the call is left to DTensor's rule, which gathers q's
 heads (a collective the dry run counts).  A decode step writes its new
 key/value in place; into a cache sharded along the sequence (K not
-dividing "model", and MLA's latent cache) it writes through
-``torch.where`` over the slot, which a rank applies to its own slots.
+dividing "model", and MLA's latent cache) only the rank whose range of
+the sequence holds the slot writes it, into its local shard.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
-from repro_torch.device import einsum, is_dtensor, relayout
+from repro_torch.device import einsum, is_dtensor, local_range, relayout
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import sdpa
 from repro_torch.models.layers import (F32, apply_norm, apply_rope,
@@ -180,15 +180,21 @@ def _q_for_cache(q: torch.Tensor, K: int) -> torch.Tensor:
 
 def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
     """``cache[:, slot] = new`` in place (cache (B, W, ...), new (B,
-    ...)); through ``torch.where`` where the cache is sharded along W."""
-    if is_dtensor(cache) and any(pl.is_shard() and pl.dim == 1
-                                 for pl in cache.placements):
-        W = cache.shape[1]
-        hit = torch.arange(W, device=cache.device) == slot
-        hit = hit.reshape((1, W) + (1,) * (cache.dim() - 2))
-        cache.copy_(torch.where(hit, new[:, None], cache))
+    ...)).  Where the cache is sharded along W, the rank whose range of
+    W holds the slot writes it into its local shard (``new`` laid out as
+    the cache's other dims); the other ranks write nothing."""
+    if not (is_dtensor(cache) and any(pl.is_shard() and pl.dim == 1
+                                      for pl in cache.placements)):
+        cache[:, slot] = new
         return
-    cache[:, slot] = new
+    from torch.distributed.tensor import Replicate, Shard
+    start, size = local_range(cache, 1)
+    if not 0 <= slot - start < size:
+        return
+    # new lacks W: the cache's dim d > 1 is new's d - 1
+    place = [Replicate() if not pl.is_shard() or pl.dim == 1
+             else Shard(pl.dim - (pl.dim > 1)) for pl in cache.placements]
+    cache.to_local()[:, slot - start] = relayout(new, place).to_local()
 
 
 def attention_forward(p, x: torch.Tensor, positions: torch.Tensor,
@@ -231,7 +237,8 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     else:
         valid = j <= pos
     mask = valid[None, None, :].expand(B, 1, W)
-    out = sdpa(_q_for_cache(q, cache_k.shape[2]), cache_k, cache_v, mask)
+    out = sdpa(_q_for_cache(q, cache_k.shape[2]), cache_k, cache_v, mask,
+               einsum=einsum)
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, (cache_k, cache_v)
 
@@ -282,7 +289,7 @@ def cross_attention_forward(p, x: torch.Tensor, kv, spec: AttnSpec
     if spec.qkv_bias:
         q = q + p["bq"]
     q = _split_heads(q, H, hd)
-    out = sdpa(q, *_kv_for_shards(q, *kv), None)
+    out = sdpa(q, *_kv_for_shards(q, *kv), None, einsum=einsum)
     y = out.reshape(B, S, -1) @ p["wo"]
     if "gate" in p:
         y = torch.tanh(p["gate"]) * y

@@ -29,12 +29,15 @@ collectives, the kernels' custom ops at their local shapes.  It counts
   call and that were alive at once (storages, tracked until freed).
 
 The operators DTensor runs on fake tensors to learn an output's global
-shape (its sharding propagation, cached per operator and layout) are not
-counted.  Unlike ``hlo_cost``, ``op_cost`` executes ``fn``, with its side
-effects (a train step updates its state); under ``FakeTensorMode``
-nothing is computed or allocated (``launch/dryrun.py``).  ``timed_best``
-is the best of K wall times, each fenced by ``torch.cuda.synchronize``
-where CUDA is in use, after one untimed call.
+shape and to choose its layout (its sharding propagation, cached per
+operator and layout, so run only on a cache miss) are not counted, nor
+are queries that return no tensor (``prim.device``, sizes): a count does
+not depend on what ran before it in the process.  Unlike ``hlo_cost``,
+``op_cost`` executes ``fn``, with its side effects (a train step updates
+its state); under ``FakeTensorMode`` nothing is computed or allocated
+(``launch/dryrun.py``).  ``timed_best`` is the best of K wall times,
+each fenced by ``torch.cuda.synchronize`` where CUDA is in use, after
+one untimed call.
 """
 from __future__ import annotations
 
@@ -60,8 +63,10 @@ _ALLOCATIONS = {_ATEN.empty.memory_format, _ATEN.empty_like.default,
                 _ATEN.empty_strided.default, _ATEN.new_empty.default}
 # custom ops whose real launches the kernels' counters already count
 _KERNEL_OPS = {"repro_torch::flash_attention", "repro_torch::ssd_scan"}
-# what DTensor's sharding propagation runs to learn output shapes
-_PROPAGATION = "_propagate_tensor_meta"
+# what DTensor's sharding propagation runs (on fake or meta tensors, once
+# per operator and layout, then cached) to learn an output's shape and
+# to choose a layout, some ops through their decomposition
+_PROPAGATION = ("_propagate_tensor_meta", "propagate_op_sharding")
 
 
 def _in_propagation() -> bool:
@@ -126,6 +131,8 @@ class _Counter(TorchDispatchMode):
                 t.nbytes for t in tree_leaves(out)
                 if isinstance(t, torch.Tensor))))
             return out
+        if not any(isinstance(t, torch.Tensor) for t in tree_leaves(out)):
+            return out      # a metadata query (prim.device, a size)
         if func._schema.name in _KERNEL_OPS and not any(
                 is_fake(t) for t in tree_leaves(args)
                 if isinstance(t, torch.Tensor)):

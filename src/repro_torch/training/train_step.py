@@ -33,7 +33,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike, implicit_replication, is_dtensor
+from repro_torch.device import (DeviceLike, implicit_replication,
+                                is_dtensor, local_range)
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm)
@@ -107,15 +108,7 @@ class _VocabNLL(torch.autograd.Function):
         m = reduce(L.amax(dim=-1), "max")
         lse = torch.log(reduce(torch.exp(L - m[..., None]).sum(dim=-1),
                                "sum")) + m
-        # this rank's first vocab row: the vocab's mesh dims split it in
-        # turn, each in torch.chunk's pieces
-        start, size = 0, logits.shape[last]
-        for n, c, v in zip(mesh.shape, mesh.get_coordinate(), vocab):
-            if v:
-                piece = -(-size // n)
-                start += c * piece
-                size = max(0, min(piece, size - c * piece))
-        idx = lab - start
+        idx = lab - local_range(logits, last)[0]
         inside = (idx >= 0) & (idx < L.shape[-1])
         idx = idx.clamp(0, max(L.shape[-1] - 1, 0))[..., None]
         zero = torch.zeros((), dtype=L.dtype, device=L.device)

@@ -55,6 +55,29 @@ def test_matmul_counts_per_device(mesh):
     assert global_count.get_total_flops() == 2_199_023_255_552
 
 
+def test_counts_do_not_depend_on_what_ran_before(mesh):
+    # softplus's backward takes its layout through DTensor's
+    # decomposition-based propagation, which runs ops on fake tensors
+    # only on a cache miss; neither that nor a metadata query
+    # (prim.device) is this rank's program
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+
+    def step(x):
+        return torch.autograd.grad(F.softplus(x).sum(), x)[0]
+    prop = DTensor._op_dispatcher.sharding_propagator
+    with FakeTensorMode():
+        x = distribute(torch.empty(256, 64), mesh, P("data", "model"))
+        x.requires_grad_(True)
+        if hasattr(prop.propagate_op_sharding, "cache_clear"):
+            prop.propagate_op_sharding.cache_clear()
+        cold = op_cost(step, x)
+        warm = op_cost(step, x)
+        device = op_cost(torch.ops.prim.device.default, torch.empty(1024))
+    assert cold["bytes"] == warm["bytes"] > 0
+    assert device["bytes"] == 0
+
+
 def test_plain_programs_count_as_the_flop_counter_does():
     from torch.utils.flop_counter import FlopCounterMode
     a, b = torch.ones(8, 16, 32), torch.ones(32, 24)

@@ -9,7 +9,11 @@ the sequence): prefill logits within 1e-5, then ten decode steps whose
 logits and caches stay within 1e-5.  Two ranks, mesh (2, 1) ``2d``: one
 train step of reduced qwen1.5-0.5b (flash) and mamba2-370m (SSD): loss,
 grad norm, every parameter and AdamW moment within 1e-6 (the sharded
-sums run in another order).  One rank, mesh (1, 1): the counterpart of
+sums run in another order).  Four ranks, mesh (2, 2), both axes split
+(batch over "data" beside heads, experts, vocab or ``d_inner`` over
+"model"): the same three ``tp`` runs, and one ``2d`` train step of
+reduced qwen1.5-0.5b, olmoe-1b-7b and mamba2-370m, held to the same
+tolerances.  One rank, mesh (1, 1): the counterpart of
 the reference's ``test_pjit_forward_on_host_mesh``, whose embedding
 lookup fails under JAX 0.9's explicit mesh axes: here the lookup on the
 vocab-sharded ``embed`` gives finite logits equal to the unsharded ones.
@@ -46,7 +50,9 @@ def case(results, name):
     return got
 
 
-@pytest.mark.parametrize("name", ["tp_qwen", "tp_olmoe", "tp_stablelm_kv1"])
+@pytest.mark.parametrize("name", ["tp_qwen", "tp_olmoe", "tp_stablelm_kv1",
+                                  "tp_qwen_2x2", "tp_olmoe_2x2",
+                                  "tp_stablelm_kv1_2x2"])
 def test_tp_prefill_and_decode_equal_the_unsharded_port(results, name):
     got = case(results, name)
     assert got["sharded_params"] > 0
@@ -66,7 +72,18 @@ def test_kv_heads_below_the_model_axis_shard_the_cache_by_sequence(results):
         "(Shard(dim=1), Shard(dim=3))"
 
 
-@pytest.mark.parametrize("name", ["2d_qwen", "2d_mamba2"])
+def test_sequence_sharded_cache_beside_a_batch_split_on_2x2(results):
+    # batch over two "data" ranks and W over two "model" ranks: each
+    # decode slot is written by the two ranks whose range of W holds it
+    got = case(results, "tp_stablelm_kv1_2x2")
+    assert got["cache_placements"]["k"] == \
+        "(Shard(dim=1), Shard(dim=2))"
+    assert case(results, "tp_qwen_2x2")["cache_placements"]["k"] == \
+        "(Shard(dim=1), Shard(dim=3))"
+
+
+@pytest.mark.parametrize("name", ["2d_qwen", "2d_mamba2", "2d_qwen_2x2",
+                                  "2d_olmoe_2x2", "2d_mamba2_2x2"])
 def test_2d_train_step_equals_the_unsharded_port(results, name):
     got = case(results, name)
     assert got["sharded_moments"] > 0

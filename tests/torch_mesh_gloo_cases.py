@@ -4,9 +4,10 @@
     python tests/torch_mesh_gloo_cases.py OUT.json
 
 starts two ranks (``torch.multiprocessing.spawn``, gloo on a free
-localhost port) and runs the two-rank cases, then one rank for the
-one-rank case; rank 0 writes each case's numbers to OUT.json.  Every
-sharded model is held to the unsharded port from the same seed.
+localhost port) and runs the two-rank cases, then four ranks for the
+(2, 2) cases, then one rank for the one-rank case; rank 0 writes each
+case's numbers to OUT.json.  Every sharded model is held to the
+unsharded port from the same seed.
 """
 from __future__ import annotations
 
@@ -29,6 +30,14 @@ SERVE = [("tp_qwen", "qwen1.5-0.5b", (1, 2), "tp", 0),
          ("tp_stablelm_kv1", "stablelm-12b", (1, 2), "tp", 1)]
 TRAIN = [("2d_qwen", "qwen1.5-0.5b", (2, 1)),
          ("2d_mamba2", "mamba2-370m", (2, 1))]
+# four ranks, both mesh axes split: batch over "data" beside heads,
+# experts, vocab or d_inner over "model"
+SERVE_2X2 = [("tp_qwen_2x2", "qwen1.5-0.5b", (2, 2), "tp", 0),
+             ("tp_olmoe_2x2", "olmoe-1b-7b", (2, 2), "tp", 0),
+             ("tp_stablelm_kv1_2x2", "stablelm-12b", (2, 2), "tp", 1)]
+TRAIN_2X2 = [("2d_qwen_2x2", "qwen1.5-0.5b", (2, 2)),
+             ("2d_olmoe_2x2", "olmoe-1b-7b", (2, 2)),
+             ("2d_mamba2_2x2", "mamba2-370m", (2, 2))]
 DECODE_STEPS = 10
 
 
@@ -162,12 +171,16 @@ def _spawn(world, cases, out_path):
     return json.loads(Path(out_path).read_text())
 
 
+def _cases(serve, train):
+    return ([(name, serve_case, (arch, shape, mode, kv))
+             for name, arch, shape, mode, kv in serve]
+            + [(name, train_case, (arch, shape))
+               for name, arch, shape in train])
+
+
 def main(out: str) -> int:
-    cases = ([(name, serve_case, (arch, shape, mode, kv))
-              for name, arch, shape, mode, kv in SERVE]
-             + [(name, train_case, (arch, shape))
-                for name, arch, shape in TRAIN])
-    results = _spawn(2, cases, out)
+    results = _spawn(2, _cases(SERVE, TRAIN), out)
+    results.update(_spawn(4, _cases(SERVE_2X2, TRAIN_2X2), out))
     results.update(_spawn(1, [("host_mesh", host_mesh_case, ())], out))
     Path(out).write_text(json.dumps(results))
     return 0
