@@ -575,6 +575,21 @@ def serve_pass(label: str, dev) -> dict:
             "reqs": [int(i) for i in reqs]}
 
 
+def _device_events(avgs) -> list:
+    """The device's own work among ``prof.key_averages()``: its CUDA
+    events less the ranges.  The tracer also projects each
+    ``record_function`` range (the engine's and the model's spans, the
+    MoE dispatch, the backward recompute) onto the device's timeline as a
+    GPU annotation bearing the range's name: no kernel, and it overlaps
+    the kernels under it."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {e.key for e in avgs if e.device_type != cuda}
+    return [e for e in avgs if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in ranges]
+
+
 def _device_us(events) -> float:
     """Summed self device time (us) of profiler events."""
     total = 0.0
@@ -621,8 +636,7 @@ def flush_breakdown(run: dict, dev) -> dict:
         svc.handle_many(imgs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = _device_us(e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us = _device_us(_device_events(prof.key_averages()))
     out["profiled_wall_ms"] = wall * 1e3
     out["device_busy_ms"] = busy_us / 1e3 if busy_us > 0 else None
     out["device_idle_share"] = (1.0 - busy_us / 1e6 / wall
@@ -929,17 +943,15 @@ def lm_breakdown(engine, reqs, dev, extra=None) -> dict:
         # it) and, where the tracer records it, as a GPU annotation (its
         # span on the device), which is no kernel: never in a group
         moe_cpu_us = moe_gpu_us = 0.0
-        for e in prof.key_averages():
-            cuda = e.device_type == torch.autograd.DeviceType.CUDA
+        avgs = prof.key_averages()
+        for e in avgs:
             if e.key == "moe_dispatch_combine":
-                if cuda:
+                if e.device_type == torch.autograd.DeviceType.CUDA:
                     moe_gpu_us += _device_us([e])
                 else:
                     moe_cpu_us += getattr(e, "device_time_total",
                                           getattr(e, "cuda_time_total", 0.0))
-                continue
-            if not cuda:
-                continue
+        for e in _device_events(avgs):
             us = _device_us([e])
             n_kernels += e.count
             name = e.key.lower()
@@ -1843,10 +1855,9 @@ def train_breakdown(step_fn, state, batch) -> dict:
         wall = time.perf_counter() - t0
     us = dict.fromkeys(("gemm", "flash_fwd", "ssd_fwd", "other"), 0.0)
     n_kernels = 0
-    for e in prof.key_averages():
-        if e.device_type == cuda and e.key not in ranges:
-            us[group(e.key)] += _device_us([e])
-            n_kernels += e.count
+    for e in _device_events(prof.key_averages()):
+        us[group(e.key)] += _device_us([e])
+        n_kernels += e.count
     rec = dict.fromkeys(us, 0.0)
     for ev in prof.events():
         if ev.name in ranges and ev.device_type != cuda:
@@ -2432,8 +2443,7 @@ def block_idle_share(env, dev) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
-    events = [e for e in avgs
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _device_events(avgs)
     busy = _device_us(events)
     host = sorted((e for e in avgs
                    if e.device_type == torch.autograd.DeviceType.CPU),

@@ -51,6 +51,7 @@ import torch
 from repro_torch.device import is_dtensor, is_sharded_or_fake
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+from repro_torch.obs.tracing import profile_range
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # head dims the kernel is instantiated for (csrc/flash_attention.cu)
@@ -196,7 +197,7 @@ def _backward(ctx, grad_out):
 
 def _plain_grads(saved, grad_out, need, causal: bool, window: int):
     # the range lets a profile read the recompute's device time apart
-    with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+    with torch.enable_grad(), profile_range(BACKWARD_RANGE):
         ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
         out = flash_attention_torch(*ins, causal=causal, window=window)
         grads = iter(torch.autograd.grad(

@@ -52,6 +52,7 @@ import torch
 from repro_torch.device import is_dtensor, is_sharded_or_fake
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.obs.tracing import profile_range
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 # (head dim, state size) values the kernel is instantiated for
@@ -244,7 +245,7 @@ def _backward(ctx, dy, dfinal):
 
 def _plain_grads(saved, dy, dfinal, need, Q: int):
     # the range lets a profile read the recompute's device time apart
-    with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+    with torch.enable_grad(), profile_range(BACKWARD_RANGE):
         ins = [None if t is None else t.detach().requires_grad_(n)
                for t, n in zip(saved, need)]
         y, final = ssd_chunked(*ins[:5], Q, initial_state=ins[5])

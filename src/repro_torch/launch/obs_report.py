@@ -13,6 +13,8 @@ Reads whichever artifacts exist under ``RUNDIR`` (all optional):
                             breakdowns (the off-policy-evaluation input;
                             see docs/observability.md)
   * ``trace.jsonl``       — per-span-name count and duration percentiles
+                            (the async plane's request spans, or the LM
+                            engine's ``engine.*``/``model.*`` spans)
   * ``events.jsonl``      — the scenario/training event stream
 
 The summarizers are plain functions over plain dicts so tests (and
@@ -161,7 +163,7 @@ def render(run: Dict) -> str:
     if run["spans"]:
         parts.append(f"-- trace spans ({len(run['spans'])}) --")
         for name, s in span_summary(run["spans"]).items():
-            parts.append(f"  {name:<14s} n={s['count']} "
+            parts.append(f"  {name:<17s} n={s['count']} "
                          f"p50={s['p50_ms']:.2f}ms p99={s['p99_ms']:.2f}ms "
                          f"max={s['max_ms']:.2f}ms")
     if run["events"]:

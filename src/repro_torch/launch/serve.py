@@ -38,7 +38,13 @@ most the SSM chunk or a multiple of it.
 request, and the metrics there (``python -m repro_torch.launch.obs_report
 DIR`` renders them); results are bit-identical with or without it.
 ``--trace-sample P`` traces that fraction of requests through the async
-plane (spans in ``trace.jsonl``).
+plane (spans in ``trace.jsonl``).  With ``--arch``, ``--obs-dir DIR``
+hands its ``Obs`` to ``ServeEngine``: the engine's spans of the batch
+(``engine.serve`` over ``engine.pad``, ``model.prefill``,
+``engine.sample``, ``model.decode_step``, ``engine.readback``) land in
+``trace.jsonl``, one trace per batch, and the ``engine.*`` token and
+time counters in ``metrics.json`` and ``metrics.prom``; the tokens are
+the same with or without it.
 ``--scenario NAME`` (federation) serves under a non-stationary provider
 pool, one schedule step per request (horizon ``max(--requests, 2)``): each
 flush is billed under the segment it was served in, and the process and
@@ -212,9 +218,13 @@ def run_lm(args) -> int:
         # the SSD scan takes a prompt of at most one chunk or of whole ones
         raise SystemExit(f"--prompt-len {L} must be at most the SSM chunk "
                          f"({cfg.ssm.chunk}) or a multiple of it")
+    obs = None
+    if args.obs_dir:
+        from repro_torch.obs import Obs
+        obs = Obs(args.obs_dir, trace_sample=1.0, seed=args.seed)
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, max_len=args.max_len, seed=args.seed,
-                         device=args.device)
+                         device=args.device, obs=obs)
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(min(4, L), L + 1, size=args.requests)
@@ -239,6 +249,12 @@ def run_lm(args) -> int:
           f" tok/s")
     for o in outs[:3]:
         print(f"  rid={o.rid} tokens={o.tokens[:8].tolist()}...")
+    if obs is not None:
+        obs.write_metrics()
+        obs.close()
+        print(f"[serve] observability artifacts in {args.obs_dir} "
+              f"(render: python -m repro_torch.launch.obs_report "
+              f"{args.obs_dir})")
     return 0
 
 
@@ -302,10 +318,11 @@ def main():
                          "plain versions)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--obs-dir", default="",
-                    help="federation: write observability artifacts "
-                         "(metrics.json, serving_log.jsonl) to this "
-                         "directory; results are bit-identical with or "
-                         "without it")
+                    help="write observability artifacts to this "
+                         "directory (federation: metrics.json, "
+                         "serving_log.jsonl; LM: the engine's spans in "
+                         "trace.jsonl, its counters in metrics.json); "
+                         "results are bit-identical with or without it")
     ap.add_argument("--scenario", default="",
                     help="federation: serve under a non-stationary "
                          "provider scenario (one schedule step per "

@@ -56,6 +56,13 @@ Cache (as the reference's ``init_cache``; W = the sliding window when
 ``prefill`` computes each layer's cross K/V once and keeps it;
 ``decode_step`` updates the cache tensors in place and returns the same
 dict (the reference returns a new pytree).
+
+Under ``torch.profiler`` every block opens a range by kind, so a trace
+puts device time and idle gaps down to it: ``model.attention`` (self or
+cross, with its norm), ``model.ffn`` (dense MLP or MoE, with its norm;
+``moe_dispatch_combine`` nests inside), ``model.mamba`` and
+``model.unembed`` (final norm and logits).  Without a profiler each costs
+one flag check (``obs.tracing.profile_range``).
 """
 from __future__ import annotations
 
@@ -77,6 +84,7 @@ from repro_torch.models.attention import AttnSpec
 from repro_torch.models.layers import (F32, ParamTree, apply_mlp,
                                        apply_norm, embed_init, init_mlp,
                                        init_norm)
+from repro_torch.obs.tracing import profile_range
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # the stub modality input a vlm or audio batch carries
@@ -114,39 +122,47 @@ def _block_forward(p, x, positions, cfg: ArchConfig, *, causal=True,
     """Pre-norm attention + FFN over the full sequence -> (x, aux, cache):
     cache (k, v) for GQA, (latent, k_rope) for MLA.  ``window`` applies to
     GQA only, as in the reference."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
-    if cfg.mla is not None:
-        a, cache = att.mla_forward(p["attn"], h, positions, cfg,
-                                   causal=causal, return_cache=True)
-    else:
-        a, cache = att.attention_forward(p["attn"], h, positions,
-                                         AttnSpec.from_cfg(cfg),
-                                         causal=causal, window=window,
-                                         return_cache=True)
-    a = settle(a)
+    with profile_range("model.attention"):
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        if cfg.mla is not None:
+            a, cache = att.mla_forward(p["attn"], h, positions, cfg,
+                                       causal=causal, return_cache=True)
+        else:
+            a, cache = att.attention_forward(p["attn"], h, positions,
+                                             AttnSpec.from_cfg(cfg),
+                                             causal=causal, window=window,
+                                             return_cache=True)
+        a = settle(a)
     if cfg.parallel_block:
-        m, aux = _ffn(p, h, cfg)
-        return x + a + settle(m), aux, cache
+        with profile_range("model.ffn"):
+            m, aux = _ffn(p, h, cfg)
+            return x + a + settle(m), aux, cache
     x = x + a
-    m, aux = _ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)
-    return x + settle(m), aux, cache
+    with profile_range("model.ffn"):
+        m, aux = _ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)
+        return x + settle(m), aux, cache
 
 
 def _block_decode(p, x, pos: int, kcache, vcache, cfg: ArchConfig, *,
                   window: int):
     """One-token decode of a block; writes the caches (k/v, or MLA's
     latent/k_rope) in place -> x."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
-    if cfg.mla is not None:
-        a, _ = att.mla_decode(p["attn"], h, pos, kcache, vcache, cfg)
-    else:
-        a, _ = att.attention_decode(p["attn"], h, pos, kcache, vcache,
-                                    AttnSpec.from_cfg(cfg), window=window)
-    a = settle(a)
+    with profile_range("model.attention"):
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        if cfg.mla is not None:
+            a, _ = att.mla_decode(p["attn"], h, pos, kcache, vcache, cfg)
+        else:
+            a, _ = att.attention_decode(p["attn"], h, pos, kcache, vcache,
+                                        AttnSpec.from_cfg(cfg),
+                                        window=window)
+        a = settle(a)
     if cfg.parallel_block:
-        return x + a + settle(_ffn(p, h, cfg)[0])
+        with profile_range("model.ffn"):
+            return x + a + settle(_ffn(p, h, cfg)[0])
     x = x + a
-    return x + settle(_ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)[0])
+    with profile_range("model.ffn"):
+        return x + settle(_ffn(p, apply_norm(p["norm2"], x, cfg.norm),
+                               cfg)[0])
 
 
 def _init_cross_block(cfg: ArchConfig, gen, dev) -> Dict:
@@ -164,12 +180,14 @@ def _init_cross_block(cfg: ArchConfig, gen, dev) -> Dict:
 def _cross_block(cp, x, ckv, cfg: ArchConfig):
     """The vlm's cross layer over the image K/V ``ckv``:
     x + tanh(gate) * attn, then x + tanh(gate_mlp) * mlp."""
-    h = apply_norm(cp["norm1"], x, cfg.norm)
-    x = x + settle(att.cross_attention_forward(cp["attn"], h, ckv,
-                                               AttnSpec.from_cfg(cfg)))
-    h2 = apply_norm(cp["norm2"], x, cfg.norm)
-    return x + torch.tanh(cp["gate_mlp"]) * settle(
-        apply_mlp(cp["mlp"], h2, cfg.act))
+    with profile_range("model.attention"):
+        h = apply_norm(cp["norm1"], x, cfg.norm)
+        x = x + settle(att.cross_attention_forward(cp["attn"], h, ckv,
+                                                   AttnSpec.from_cfg(cfg)))
+    with profile_range("model.ffn"):
+        h2 = apply_norm(cp["norm2"], x, cfg.norm)
+        return x + torch.tanh(cp["gate_mlp"]) * settle(
+            apply_mlp(cp["mlp"], h2, cfg.act))
 
 
 def _init_decoder_block(cfg: ArchConfig, gen, dev) -> Dict:
@@ -185,23 +203,27 @@ def _init_decoder_block(cfg: ArchConfig, gen, dev) -> Dict:
 def _cross_ffn(lp, x, ckv, cfg: ArchConfig):
     """A decoder block after its self-attention: cross-attention over the
     encoder's K/V ``ckv``, then the MLP, each pre-norm with its residual."""
-    hx = apply_norm(lp["norm_x"], x, cfg.norm)
-    x = x + settle(att.cross_attention_forward(lp["cross"], hx, ckv,
-                                               AttnSpec.from_cfg(cfg)))
-    return x + settle(apply_mlp(lp["mlp"],
-                                apply_norm(lp["norm2"], x, cfg.norm),
-                                cfg.act))
+    with profile_range("model.attention"):
+        hx = apply_norm(lp["norm_x"], x, cfg.norm)
+        x = x + settle(att.cross_attention_forward(lp["cross"], hx, ckv,
+                                                   AttnSpec.from_cfg(cfg)))
+    with profile_range("model.ffn"):
+        return x + settle(apply_mlp(lp["mlp"],
+                                    apply_norm(lp["norm2"], x, cfg.norm),
+                                    cfg.act))
 
 
 def _block_forward_cross(lp, x, positions, ckv, cfg: ArchConfig, *,
                          window: int = 0):
     """Enc-dec decoder block over the full sequence: causal self-attention
     (flash), cross-attention over ``ckv``, FFN -> (x, (k, v))."""
-    h = apply_norm(lp["norm1"], x, cfg.norm)
-    a, kv = att.attention_forward(lp["attn"], h, positions,
-                                  AttnSpec.from_cfg(cfg), causal=True,
-                                  window=window, return_cache=True)
-    return _cross_ffn(lp, x + settle(a), ckv, cfg), kv
+    with profile_range("model.attention"):
+        h = apply_norm(lp["norm1"], x, cfg.norm)
+        a, kv = att.attention_forward(lp["attn"], h, positions,
+                                      AttnSpec.from_cfg(cfg), causal=True,
+                                      window=window, return_cache=True)
+        x = x + settle(a)
+    return _cross_ffn(lp, x, ckv, cfg), kv
 
 
 def _mamba_layer(cfg: ArchConfig, gen, dev) -> ParamTree:
@@ -212,24 +234,26 @@ def _mamba_layer(cfg: ArchConfig, gen, dev) -> ParamTree:
 def _mamba_block(lp, x, cfg: ArchConfig):
     """Pre-norm Mamba block with its residual over the full sequence (the
     training forward: no caches)."""
-    return x + settle(ssm_lib.mamba_forward(
-        lp["mamba"], apply_norm(lp["norm"], x, cfg.norm), cfg))
+    with profile_range("model.mamba"):
+        return x + settle(ssm_lib.mamba_forward(
+            lp["mamba"], apply_norm(lp["norm"], x, cfg.norm), cfg))
 
 
 def _mamba_step(lp, x, caches, cfg: ArchConfig, *, decode: bool):
     """Pre-norm Mamba block with its residual, over the full sequence or
     one token; writes the layer's (ssm, conv_x, conv_bc) caches in place."""
     st, cx, cbc = caches
-    h = apply_norm(lp["norm"], x, cfg.norm)
-    if decode:
-        y, (st1, (cx1, cbc1)) = ssm_lib.mamba_decode(lp["mamba"], h,
-                                                     (st, (cx, cbc)), cfg)
-    else:
-        y, (st1, (cx1, cbc1)) = ssm_lib.mamba_forward(lp["mamba"], h, cfg,
-                                                      return_state=True)
-    for dst, src in zip(caches, (st1, cx1, cbc1)):
-        dst.copy_(src)
-    return x + settle(y)
+    with profile_range("model.mamba"):
+        h = apply_norm(lp["norm"], x, cfg.norm)
+        if decode:
+            y, (st1, (cx1, cbc1)) = ssm_lib.mamba_decode(
+                lp["mamba"], h, (st, (cx, cbc)), cfg)
+        else:
+            y, (st1, (cx1, cbc1)) = ssm_lib.mamba_forward(
+                lp["mamba"], h, cfg, return_state=True)
+        for dst, src in zip(caches, (st1, cx1, cbc1)):
+            dst.copy_(src)
+        return x + settle(y)
 
 
 def _run(fn, remat: bool, *args):
@@ -343,7 +367,9 @@ class Model(nn.Module):
 
     # ----- helpers ----------------------------------------------------------
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.unembed(apply_norm(self.final_norm, x, self.cfg.norm))
+        with profile_range("model.unembed"):
+            return self.unembed(apply_norm(self.final_norm, x,
+                                           self.cfg.norm))
 
     @_on_mesh
     def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -669,11 +695,13 @@ class Model(nn.Module):
         elif cfg.family == "audio":
             spec = AttnSpec.from_cfg(cfg)
             for i, (lp, ca, cb) in enumerate(self._attn_layers(cache)):
-                h = apply_norm(lp["norm1"], x, cfg.norm)
-                a, _ = att.attention_decode(lp["attn"], h, pos, ca, cb, spec,
-                                            window=window)
-                x = _cross_ffn(lp, x + settle(a), (cache["cross_k"][i],
-                                                   cache["cross_v"][i]), cfg)
+                with profile_range("model.attention"):
+                    h = apply_norm(lp["norm1"], x, cfg.norm)
+                    a, _ = att.attention_decode(lp["attn"], h, pos, ca, cb,
+                                                spec, window=window)
+                    x = x + settle(a)
+                x = _cross_ffn(lp, x, (cache["cross_k"][i],
+                                       cache["cross_v"][i]), cfg)
         elif cfg.family == "ssm":
             for lp, caches in self._mamba_layers(cache):
                 x = _mamba_step(lp, x, caches, cfg, decode=True)

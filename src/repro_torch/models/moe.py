@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.device import einsum, is_dtensor, relayout
 from repro_torch.models.layers import act_fn, dense_init
+from repro_torch.obs.tracing import profile_range
 
 GROUP_SIZE = 256
 
@@ -143,14 +144,15 @@ def apply_moe(p, x: torch.Tensor, mo: MoEConfig, act: str):
         else:
             dispatch, combine = dispatch + d_k, combine + c_k
 
-    # the two one-hot products under one profiler range, so a trace reads
-    # their device time apart from the expert GEMMs
-    with torch.profiler.record_function("moe_dispatch_combine"):
+    # the two one-hot products under one profiler range (opened only while
+    # a profiler records), so a trace reads their device time apart from
+    # the expert GEMMs
+    with profile_range("moe_dispatch_combine"):
         xe = _layout(einsum("gtec,gtd->gecd", dispatch, xg), _EP)
     h = fn(einsum("gecd,edf->gecf", xe, p["w_gate"])) \
         * einsum("gecd,edf->gecf", xe, p["w_up"])
     ye = _layout(einsum("gecf,efd->gecd", h, p["w_down"]), _EP)
-    with torch.profiler.record_function("moe_dispatch_combine"):
+    with profile_range("moe_dispatch_combine"):
         y = einsum("gtec,gecd->gtd", combine, ye).reshape(B, S, d)
 
     if "shared" in p:

@@ -1,4 +1,4 @@
-"""Span-based request tracing for the async serving plane.
+"""Span-based tracing for the async serving plane and the LM engine.
 
 A sampled request carries a ``trace_id`` from ``submit`` to its future's
 resolution; the stations along the way — the flush that batched it (with
@@ -7,7 +7,20 @@ evaluation on the far side of the ``mp_shards`` pipe — each record one
 span tied to that trace.  Spans are plain dicts:
 
     {"name": str, "trace": str, "span": str, "parent": str | None,
-     "ts": float (epoch seconds), "dur_ms": float, "attrs": {...}}
+     "ts": float (epoch seconds), "dur_ms": float,
+     "ts_ns": int, "end_ns": int (epoch nanoseconds), "attrs": {...}}
+
+``ts_ns``/``end_ns`` come from ``time.time_ns()``, the clock in which
+``torch.profiler`` stamps host events; ``dur_ms`` from
+``time.perf_counter()``.  While a profiler records, a :class:`Span` also
+opens a ``torch.profiler.record_function`` range of its own name, so the
+span lands in the device trace beside the kernels it launched, on the
+same clock; :func:`profile_range` opens such a range alone (the model's
+per-block ranges, which exist only under a profiler).
+
+The LM serving engine records every ``serve`` call's spans in a
+:class:`SpanLog` (no sampling: one batch is one trace), and forwards
+them to a :class:`Tracer` where it was given one.
 
 The wire form of a trace context is ``(trace_id, parent_span_id)`` — a
 picklable 2-tuple the process-shard protocol appends to its eval
@@ -25,6 +38,7 @@ bit-identical.
 from __future__ import annotations
 
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -53,16 +67,34 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
-class Span:
-    __slots__ = ("_tracer", "name", "trace_id", "span_id", "parent_id",
-                 "attrs", "_t0", "_ts")
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process (False, with
+    nothing imported, where torch never was)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
 
-    def __init__(self, tracer: "Tracer", name: str, trace_id: str,
+
+def profile_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records, else the shared no-op span."""
+    if not profiling():
+        return NULL_SPAN
+    return sys.modules["torch"].profiler.record_function(name)
+
+
+class Span:
+    """One span, recorded on exit into ``sink`` (a :class:`Tracer` or a
+    :class:`SpanLog`: ``_next_span_id()`` and ``record(dict)``)."""
+
+    __slots__ = ("_sink", "name", "trace_id", "span_id", "parent_id",
+                 "attrs", "_t0", "_ts_ns", "_range")
+
+    def __init__(self, sink, name: str, trace_id: str,
                  parent_id: Optional[str], attrs: Dict):
-        self._tracer = tracer
+        self._sink = sink
         self.name = name
         self.trace_id = trace_id
-        self.span_id = tracer._next_span_id()
+        self.span_id = sink._next_span_id()
         self.parent_id = parent_id
         self.attrs = attrs
 
@@ -70,18 +102,23 @@ class Span:
         self.attrs.update(attrs)
 
     def __enter__(self) -> "Span":
-        self._ts = time.time()
+        self._ts_ns = time.time_ns()
         self._t0 = time.perf_counter()
+        self._range = profile_range(self.name)
+        self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, *exc) -> None:
+        self._range.__exit__(exc_type, *exc)
+        dur_ms = (time.perf_counter() - self._t0) * 1e3
+        end_ns = time.time_ns()
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
-        self._tracer.record({
+        self._sink.record({
             "name": self.name, "trace": self.trace_id,
             "span": self.span_id, "parent": self.parent_id,
-            "ts": self._ts,
-            "dur_ms": (time.perf_counter() - self._t0) * 1e3,
+            "ts": self._ts_ns / 1e9, "dur_ms": dur_ms,
+            "ts_ns": self._ts_ns, "end_ns": end_ns,
             "attrs": self.attrs})
         return None
 
@@ -94,7 +131,7 @@ class Tracer:
     sample:    fraction of requests that get a trace (0 disables).
     writer:    optional callback invoked with each finished span dict
                (the ``Obs`` umbrella wires a JSONL appender here).
-    max_spans: in-memory ring capacity for :meth:`drain`/reporting.
+    max_spans: in-memory ring capacity for :meth:`spans`.
     seed:      sampler seed — deterministic, isolated from user rngs.
     """
 
@@ -151,12 +188,39 @@ class Tracer:
             self._writer(rec)
 
     # -- reporting --------------------------------------------------------
-    def drain(self) -> List[dict]:
-        with self._lock:
-            out = list(self._spans)
-            self._spans.clear()
-        return out
-
     def spans(self) -> List[dict]:
         with self._lock:
             return list(self._spans)
+
+
+class SpanLog:
+    """Every span of one unit of work (one ``ServeEngine.serve``), kept in
+    ``spans`` in the order they end.  With a ``tracer`` and a
+    ``trace_id`` (a trace it sampled) each is also recorded there."""
+
+    def __init__(self, tracer: Optional[Tracer] = None,
+                 trace_id: Optional[str] = None):
+        self.spans: List[dict] = []
+        self.trace_id = trace_id or "local"
+        self._forward = tracer if trace_id is not None else None
+        self._n = 0
+
+    def _next_span_id(self) -> str:
+        if self._forward is not None:
+            return self._forward._next_span_id()
+        self._n += 1
+        return f"s{self._n:08x}"
+
+    def span(self, name: str, parent: Optional[Span] = None,
+             **attrs) -> Span:
+        return Span(self, name, self.trace_id,
+                    None if parent is None else parent.span_id, attrs)
+
+    def record(self, rec: dict) -> None:
+        self.spans.append(rec)
+        if self._forward is not None:
+            self._forward.record(rec)
+
+    def total_s(self, name: str) -> float:
+        """The summed ``dur_ms`` of the spans named ``name``, in s."""
+        return sum(s["dur_ms"] for s in self.spans if s["name"] == name) / 1e3

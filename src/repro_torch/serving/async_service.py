@@ -203,14 +203,15 @@ class AsyncFederationService:
             # the request span: enqueue -> future resolution (covers the
             # queue wait, the flush, the shard RPC and assembly)
             t_sub = time.monotonic()
-            ts = time.time()
+            ts_ns = time.time_ns()
             img = int(img_idx)
 
-            def _done(f, tid=tid, t_sub=t_sub, ts=ts, img=img):
+            def _done(f, tid=tid, t_sub=t_sub, ts_ns=ts_ns, img=img):
                 self._tracer.record({
                     "name": "request", "trace": tid, "span": tid,
-                    "parent": None, "ts": ts,
+                    "parent": None, "ts": ts_ns / 1e9,
                     "dur_ms": (time.monotonic() - t_sub) * 1e3,
+                    "ts_ns": ts_ns, "end_ns": time.time_ns(),
                     "attrs": {"img": img,
                               "error": f.exception() is not None}})
             fut.add_done_callback(_done)
@@ -345,11 +346,13 @@ class AsyncFederationService:
                 # the flush span covers the agent decision + routing; the
                 # per-shard RPC/assembly hangs off it as child spans
                 dur_ms = (time.monotonic() - t0) * 1e3
+                end_ns = time.time_ns()
                 span_id = self._tracer._next_span_id()
                 self._tracer.record({
                     "name": "flush", "trace": tids[0], "span": span_id,
-                    "parent": tids[0], "ts": time.time() - dur_ms / 1e3,
+                    "parent": tids[0], "ts": end_ns / 1e9 - dur_ms / 1e3,
                     "dur_ms": dur_ms,
+                    "ts_ns": end_ns - int(dur_ms * 1e6), "end_ns": end_ns,
                     "attrs": {"reason": reason, "size": len(batch),
                               "clock": int(clock),
                               "n_traced": len(tids)}})

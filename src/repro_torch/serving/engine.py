@@ -10,6 +10,24 @@ batch has none, zeros stand in, as in the reference.
 Runs on the GPU unless ``device="cpu"`` is passed; without a GPU it
 raises.  Float32 matrix products are pinned to full float32 (no TF32) on
 the card, as the reference serves in float32.
+
+Every ``serve`` records its spans (``obs.tracing``) in ``last_spans``: the
+root ``engine.serve`` (attrs B, S, decode_steps) over ``engine.pad`` (the
+host left-pad and the inputs' copy to the device), ``model.prefill`` (to
+its sync), then per token ``engine.sample`` and, between two tokens,
+``model.decode_step`` (the host's time to enqueue the step), and last
+``engine.readback`` (the tokens' copy to the host, which waits for the
+device to drain).  Under ``torch.profiler`` each is also a range of the
+same name in the trace, on the profiler's clock.  ``last_stats`` holds
+the phase times (``prefill_s``: pad and prefill; ``decode_s``: the rest),
+the spans' sums (``pad_s``, ``sample_s``, ``decode_host_s``,
+``readback_s``) and the batch's token counts: ``prompt_tokens`` (the
+unpadded prompts), ``prefill_tokens`` (B x S, padding included),
+``requested_tokens`` (the sum of ``max_new_tokens``) and
+``decoded_tokens`` (B x the longest ``max_new_tokens``: every row decodes
+to the longest).  Given an ``obs`` handle, a sampled batch's spans also go
+to ``obs.tracer`` as one trace, and the counts and times add to the
+``engine.*`` counters of ``obs.metrics``.
 """
 from __future__ import annotations
 
@@ -23,6 +41,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model
+from repro_torch.obs.tracing import SpanLog
 
 
 @dataclass
@@ -46,13 +65,20 @@ def pin_float32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+# ``last_stats`` keys that are also ``engine.*`` counters under ``obs``
+COUNTERS = ("prompt_tokens", "prefill_tokens", "requested_tokens",
+            "decoded_tokens", "pad_s", "sample_s", "decode_host_s",
+            "readback_s")
+
+
 class ServeEngine:
     """``model`` (a ``Model`` on ``device``) or weights drawn from ``seed``.
-    ``last_stats`` holds the phase times of the latest ``serve``."""
+    ``last_stats`` and ``last_spans`` describe the latest ``serve``;
+    ``obs`` (an ``obs.Obs``) also receives its spans and counters."""
 
     def __init__(self, cfg: ArchConfig, model: Optional[Model] = None, *,
                  max_len: int = 256, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, obs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         pin_float32()
@@ -63,7 +89,9 @@ class ServeEngine:
                              f"serves on {self.device}")
         self.model = model
         self.max_len = max_len
+        self.obs = obs if obs is not None and obs.enabled else None
         self.last_stats: Dict[str, float] = {}
+        self.last_spans: List[dict] = []
 
     def _pad_batch(self, requests: List[Request]) -> np.ndarray:
         L = max(len(r.prompt_tokens) for r in requests)
@@ -96,31 +124,57 @@ class ServeEngine:
 
     def serve(self, requests: List[Request], *, seed: int = 0,
               extra_inputs: Optional[dict] = None) -> List[Completion]:
-        t0 = time.perf_counter()
-        batch = self._batch(requests, extra_inputs)
-        toks = batch["tokens"]
-        logits, cache = self.model.prefill(batch, self.max_len)
-        self._sync()
-        t1 = time.perf_counter()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        temps = [float(r.temperature) for r in requests]
+        B = len(requests)
+        S = max(len(r.prompt_tokens) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
-        cur = self._sample(logits, temps, gen)
-        out = [cur]
-        # the reference decodes once more after the last token and drops
-        # the result; that step is skipped here (same tokens)
-        for _ in range(max_new - 1):
-            logits, cache = self.model.decode_step(cache, cur[:, None])
-            cur = self._sample(logits, temps, gen)
-            out.append(cur)
-        tokens = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
-        t2 = time.perf_counter()
+        log = SpanLog() if self.obs is None else \
+            SpanLog(self.obs.tracer, self.obs.tracer.sample_request())
+        with log.span("engine.serve", B=B, S=S,
+                      decode_steps=max_new - 1) as root:
+            t0 = time.perf_counter()
+            with log.span("engine.pad", root):
+                batch = self._batch(requests, extra_inputs)
+            with log.span("model.prefill", root):
+                logits, cache = self.model.prefill(batch, self.max_len)
+                self._sync()
+            t1 = time.perf_counter()
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            temps = [float(r.temperature) for r in requests]
+            with log.span("engine.sample", root):
+                cur = self._sample(logits, temps, gen)
+            out = [cur]
+            # the reference decodes once more after the last token and
+            # drops the result; that step is skipped here (same tokens)
+            for _ in range(max_new - 1):
+                with log.span("model.decode_step", root):
+                    logits, cache = self.model.decode_step(cache,
+                                                           cur[:, None])
+                with log.span("engine.sample", root):
+                    cur = self._sample(logits, temps, gen)
+                out.append(cur)
+            with log.span("engine.readback", root):
+                tokens = torch.stack(out, dim=1).cpu().numpy().astype(
+                    np.int32)
+            t2 = time.perf_counter()
+        self.last_spans = log.spans
         self.last_stats = {
-            "batch": len(requests), "prompt_len": int(toks.shape[1]),
+            "batch": B, "prompt_len": S,
             "prefill_s": t1 - t0, "decode_s": t2 - t1,
             "decode_steps": max_new - 1, "new_tokens": max_new,
+            "prompt_tokens": sum(len(r.prompt_tokens) for r in requests),
+            "prefill_tokens": B * S,
+            "requested_tokens": sum(r.max_new_tokens for r in requests),
+            "decoded_tokens": B * max_new,
+            "pad_s": log.total_s("engine.pad"),
+            "sample_s": log.total_s("engine.sample"),
+            "decode_host_s": log.total_s("model.decode_step"),
+            "readback_s": log.total_s("engine.readback"),
         }
+        if self.obs is not None:
+            for k in COUNTERS:
+                self.obs.metrics.counter("engine." + k).inc(
+                    self.last_stats[k])
         dt = t2 - t0
         return [Completion(r.rid, tokens[i, :r.max_new_tokens], dt)
                 for i, r in enumerate(requests)]

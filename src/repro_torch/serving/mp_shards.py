@@ -186,11 +186,14 @@ class ShardOpHandler:
                 with self._wall_lock:
                     self._n_spans += 1
                     n_spans = self._n_spans
+                dur_ms = (time.perf_counter() - t_op) * 1e3
+                end_ns = time.time_ns()
                 return "ok", (rows, {
                     "name": "worker_eval", "trace": trace[0],
                     "span": f"w{os.getpid():x}.{n_spans:x}",
-                    "parent": trace[1], "ts": time.time(),
-                    "dur_ms": (time.perf_counter() - t_op) * 1e3,
+                    "parent": trace[1], "ts": end_ns / 1e9,
+                    "dur_ms": dur_ms,
+                    "ts_ns": end_ns - int(dur_ms * 1e6), "end_ns": end_ns,
                     "attrs": {"pid": os.getpid(), "n": len(imgs)}})
             elif op == "ap":
                 img, mask, against, key = args
