@@ -8,8 +8,13 @@ activations  x: (B, S, d_model)
 q            : (B, S, H, hd)
 kv cache     : k/v (B, S_cache, K, hd); keys stored *already RoPE'd*.
 MLA cache    : latent (B, S_cache, kv_lora) + k_rope (B, S_cache, rope_dim).
-Decode steps take a Python int ``pos`` (same position across the batch:
-static batching).
+Decode steps take ``pos`` (same position across the batch: static
+batching) as a Python int, or as a 0-d int64 tensor on the device, for a
+step that a CUDA graph records (``Model.decode_step``): the positions,
+the ring slot, the cache write (``index_copy_``) and the mask are then
+built on the device from it, with the int path's values.  That ``pos``
+lies inside a cache that is no ring is checked by ``Model.decode_step``
+(``mla_decode`` also checks an int ``pos`` itself).
 
 GQA's full-sequence attention goes through the flash-attention kernel
 (``kernels.flash_attention.ops``); the one-token decode stays plain
@@ -180,9 +185,14 @@ def _q_for_cache(q: torch.Tensor, K: int) -> torch.Tensor:
 
 def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
     """``cache[:, slot] = new`` in place (cache (B, W, ...), new (B,
-    ...)).  Where the cache is sharded along W, the rank whose range of
-    W holds the slot writes it into its local shard (``new`` laid out as
-    the cache's other dims); the other ranks write nothing."""
+    ...)); ``slot`` an int, or a 0-d tensor on the device (written by
+    ``index_copy_``, no host read).  Where the cache is sharded along W,
+    the rank whose range of W holds the slot writes it into its local
+    shard (``new`` laid out as the cache's other dims); the other ranks
+    write nothing."""
+    if isinstance(slot, torch.Tensor) and not is_dtensor(cache):
+        cache.index_copy_(1, slot.reshape(1), new[:, None])
+        return
     if not (is_dtensor(cache) and any(pl.is_shard() and pl.dim == 1
                                       for pl in cache.placements)):
         cache[:, slot] = new
@@ -195,6 +205,13 @@ def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
     place = [Replicate() if not pl.is_shard() or pl.dim == 1
              else Shard(pl.dim - (pl.dim > 1)) for pl in cache.placements]
     cache.to_local()[:, slot - start] = relayout(new, place).to_local()
+
+
+def _positions(pos, B: int, dev) -> torch.Tensor:
+    """The (B, 1) int64 positions of a decode step at ``pos``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.expand(B, 1)
+    return torch.full((B, 1), pos, dtype=torch.long, device=dev)
 
 
 def attention_forward(p, x: torch.Tensor, positions: torch.Tensor,
@@ -215,7 +232,8 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor,
 def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, spec: AttnSpec, *,
                      window: int = 0):
-    """One-token decode. x: (B,1,d); cache_k/v: (B,W,K,hd); pos an int.
+    """One-token decode. x: (B,1,d); cache_k/v: (B,W,K,hd); pos an int
+    or a 0-d int64 device tensor (see the module docstring).
 
     With ``window`` the cache is a ring buffer of size W; otherwise W is the
     max sequence length and ``pos`` indexes into it directly.  The new
@@ -224,10 +242,7 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     """
     B = x.shape[0]
     W = cache_k.shape[1]
-    if not window and pos >= W:
-        raise ValueError(f"decode position {pos} is past the cache ({W})")
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
-    q, k, v = _project_qkv(p, x, spec, positions)
+    q, k, v = _project_qkv(p, x, spec, _positions(pos, B, x.device))
     slot = pos % W if window else pos
     _write_slot(cache_k, slot, k[:, 0])
     _write_slot(cache_v, slot, v[:, 0])
@@ -373,13 +388,14 @@ def mla_decode(p, x: torch.Tensor, pos: int, cache_latent: torch.Tensor,
                cache_krope: torch.Tensor, cfg: ArchConfig):
     """Absorbed decode: scores in latent space against the cache
     (B,W,kv_lora) + (B,W,rope).  The new latent and rope key are written
-    at ``pos`` in place, and the same tensors are returned."""
+    at ``pos`` (an int or a 0-d int64 device tensor) in place, and the
+    same tensors are returned."""
     m, H = cfg.mla, cfg.num_heads
     B = x.shape[0]
     W = cache_latent.shape[1]
-    if pos >= W:
+    if not isinstance(pos, torch.Tensor) and pos >= W:
         raise ValueError(f"decode position {pos} is past the cache ({W})")
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    positions = _positions(pos, B, x.device)
     q_nope, q_rope = _mla_q(p, x, m, H, positions)       # (B,1,H,.)
     latent, k_rope = _mla_latent(p, x, m, positions)     # (B,1,kv_lora),...
     _write_slot(cache_latent, pos, latent[:, 0])

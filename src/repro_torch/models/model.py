@@ -52,22 +52,26 @@ Cache (as the reference's ``init_cache``; W = the sliding window when
                  (n_super, B, T, K, hd) of the image tokens
   audio          k, v (L, B, W, K, hd); cross_k, cross_v (L, B, F, K, hd)
                  of the encoder's output
-  pos            Python int
+  pos            Python int (a graph's step reads it from a device copy)
 ``prefill`` computes each layer's cross K/V once and keeps it;
 ``decode_step`` updates the cache tensors in place and returns the same
-dict (the reference returns a new pytree).
+dict (the reference returns a new pytree).  A ``StaticCache`` (the
+serving engine's, refilled in place by ``prefill(..., cache=)``) holds its tensors at one address from batch to batch, and on
+the card, off a mesh, ``decode_step`` replays a CUDA graph of its step
+(``decode_step``); every other cache takes the eager step.
 
 Under ``torch.profiler`` every block opens a range by kind, so a trace
 puts device time and idle gaps down to it: ``model.attention`` (self or
 cross, with its norm), ``model.ffn`` (dense MLP or MoE, with its norm;
 ``moe_dispatch_combine`` nests inside), ``model.mamba`` and
 ``model.unembed`` (final norm and logits).  Without a profiler each costs
-one flag check (``obs.tracing.profile_range``).
+one flag check (``obs.tracing.profile_range``).  A replayed CUDA graph
+runs no Python, so inside it no range opens.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -143,7 +147,7 @@ def _block_forward(p, x, positions, cfg: ArchConfig, *, causal=True,
         return x + settle(m), aux, cache
 
 
-def _block_decode(p, x, pos: int, kcache, vcache, cfg: ArchConfig, *,
+def _block_decode(p, x, pos, kcache, vcache, cfg: ArchConfig, *,
                   window: int):
     """One-token decode of a block; writes the caches (k/v, or MLA's
     latent/k_rope) in place -> x."""
@@ -292,6 +296,22 @@ def _ring_place(kv: torch.Tensor, S: int, W: int) -> torch.Tensor:
     j = torch.arange(W, device=kv.device)
     src = (S - 1) - torch.remainder((S - 1) - j, W)
     return kv.index_select(1, src)
+
+
+class StaticCache(dict):
+    """A decode cache whose tensors keep their address from batch to
+    batch: ``ServeEngine`` keeps one, of its last batch's shape (B,
+    max_len, cross length), and ``Model.prefill(..., cache=)`` zeroes and refills it in place.
+    ``graph`` is its step's CUDA graph once ``decode_step`` has captured
+    it: (graph, static tokens (B, 1), static position (), static logits
+    (B, V)).  ``captures`` counts its captures, ``replays`` the steps a
+    replay served."""
+
+    def __init__(self, tensors: Dict):
+        super().__init__(tensors)
+        self.graph: Optional[Tuple] = None
+        self.captures = 0
+        self.replays = 0
 
 
 class Model(nn.Module):
@@ -604,22 +624,36 @@ class Model(nn.Module):
             cache["v"] = zeros(self.n_super, B, Wa, K, hd)
         return cache
 
+    @torch.no_grad()
+    def static_cache(self, batch_size: int, max_len: int,
+                     cross_len: Optional[int] = None) -> StaticCache:
+        """A zero ``StaticCache`` for ``prefill(..., cache=)``; ``cross_len``
+        as in ``_zero_cache``."""
+        return StaticCache(self._zero_cache(batch_size, max_len, cross_len))
+
     # ----- prefill ------------------------------------------------------------
     @torch.no_grad()
     @_on_mesh
-    def prefill(self, batch, max_len: int):
+    def prefill(self, batch, max_len: int, cache: Optional[Dict] = None):
         """Run the prompt, return (last-token logits (B,V), cache at pos=S).
         ``batch`` is ``{"tokens": (B, S)}`` (or the tokens themselves);
         the vlm's also holds ``image_embeds`` and the audio arch's
-        ``audio_frames``."""
+        ``audio_frames``.  Given a ``cache`` of the batch's shape (B,
+        ``max_len``, cross length), it is zeroed and written in place, and
+        returned; else a new one is made."""
         cfg = self.cfg
         tokens = self._tokens(batch)
         B, S = tokens.shape
         src = self._cross_source(batch)
         x = self._embed(tokens)
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
-        cache = self._zero_cache(B, max_len,
-                                 None if src is None else src.shape[1])
+        if cache is None:
+            cache = self._zero_cache(B, max_len,
+                                     None if src is None else src.shape[1])
+        else:
+            for t in cache.values():
+                if isinstance(t, torch.Tensor):
+                    t.zero_()
         cache["pos"] = S
         window = self._window_for(max_len)
         W = window or max_len
@@ -672,15 +706,94 @@ class Model(nn.Module):
     @torch.no_grad()
     @_on_mesh
     def decode_step(self, cache: Dict, tokens):
-        """tokens: (B, 1) -> (logits (B,V) fp32, cache updated in place)."""
-        cfg = self.cfg
+        """tokens: (B, 1) -> (logits (B,V) fp32, cache updated in place).
+
+        Given a ``StaticCache`` on the card and off a mesh, the step is a
+        CUDA graph: the cache's first step runs eagerly on a side stream
+        (its warm-up), and its capture follows (a capture launches
+        nothing, so no state advances twice); every later step copies
+        ``tokens`` into the graph's token buffer, fills its device
+        position from ``cache["pos"]`` and replays.  The logits returned
+        are then the graph's own buffer, which the next replay
+        overwrites: read them first (the engine samples from them before
+        its next step, in stream order).  Any other cache, or a CPU or
+        sharded model, takes the eager step at the int ``cache["pos"]``."""
         pos = int(cache["pos"])
-        x = self._embed(self._tokens(tokens))
-        if cfg.family in ("dense", "moe", "vlm", "audio"):
-            W = cache["latent"].shape[2] if cfg.mla is not None else \
-                cache["k"].shape[-3]
-            window = W if cfg.long_context == "sliding_window" and \
-                W == cfg.sliding_window else 0
+        self._check_room(cache, pos)
+        if isinstance(cache, StaticCache) and self.mesh is None \
+                and self.device.type == "cuda":
+            return self._graph_step(cache, tokens, pos)
+        logits = self._decode_at(cache, self._tokens(tokens), pos)
+        cache["pos"] = pos + 1
+        return logits, cache
+
+    def _graph_step(self, cache: StaticCache, tokens, pos: int):
+        tokens = self._tokens(tokens)
+        if cache.graph is None:
+            logits = self._capture(cache, tokens, pos)
+        else:
+            graph, tok, dpos, logits = cache.graph
+            tok.copy_(tokens)
+            dpos.fill_(pos)
+            graph.replay()
+            cache.replays += 1
+        cache["pos"] = pos + 1
+        return logits, cache
+
+    def _capture(self, cache: StaticCache, tokens: torch.Tensor,
+                 pos: int) -> torch.Tensor:
+        """The cache's first step, eagerly on a side stream from its static
+        token and position buffers (the warm-up of every kernel and
+        library handle the capture records), then the capture of the same
+        step on that stream -> the eager step's logits."""
+        tok = tokens.clone()
+        dpos = torch.full((), pos, dtype=torch.long, device=self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            logits = self._decode_at(cache, tok, dpos)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = self._decode_at(cache, tok, dpos)
+        cache.graph = (graph, tok, dpos, out)
+        cache.captures += 1
+        return logits
+
+    def _check_room(self, cache: Dict, pos: int) -> None:
+        """Raise where the step at ``pos`` lies past a self-attention cache
+        that is no ring (MLA's never is): the one check of the int and the
+        graph step alike, since a device position cannot be checked on the
+        host."""
+        if self.cfg.family == "ssm":
+            return
+        W, window = self._self_window(cache)
+        if (self.cfg.mla is not None or not window) and pos >= W:
+            raise ValueError(f"decode position {pos} is past the cache ({W})")
+
+    def _self_window(self, cache: Dict) -> Tuple[int, int]:
+        """(W, window) of the cache's self-attention: its slots, and W where
+        it is a ring of the sliding window, else 0."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            W = cache["k"].shape[2]
+            return W, W if W == cfg.sliding_window else 0
+        W = cache["latent"].shape[2] if cfg.mla is not None else \
+            cache["k"].shape[-3]
+        ring = cfg.long_context == "sliding_window" and \
+            W == cfg.sliding_window
+        return W, W if ring else 0
+
+    def _decode_at(self, cache: Dict, tokens: torch.Tensor, pos
+                   ) -> torch.Tensor:
+        """The decode step's body at ``pos``: a Python int, or a 0-d int64
+        tensor on the model's device (a step a CUDA graph records; same
+        values) -> logits (B, V); writes the cache tensors in place and
+        leaves ``cache["pos"]`` alone."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        if cfg.family != "ssm":
+            window = self._self_window(cache)[1]
         if cfg.family in ("dense", "moe"):
             for lp, ca, cb in self._attn_layers(cache):
                 x = _block_decode(lp, x, pos, ca, cb, cfg, window=window)
@@ -706,14 +819,10 @@ class Model(nn.Module):
             for lp, caches in self._mamba_layers(cache):
                 x = _mamba_step(lp, x, caches, cfg, decode=True)
         else:
-            Wa = cache["k"].shape[2]
-            wina = Wa if Wa == cfg.sliding_window else 0
             layers = self._mamba_layers(cache)
             for s in range(self.n_super):
                 for lp, caches in layers[s * self.per:(s + 1) * self.per]:
                     x = _mamba_step(lp, x, caches, cfg, decode=True)
                 x = _block_decode(self.shared_attn, x, pos, cache["k"][s],
-                                  cache["v"][s], cfg, window=wina)
-        cache["pos"] = pos + 1
-        logits = self._logits(x)[:, 0, :]
-        return logits, cache
+                                  cache["v"][s], cfg, window=window)
+        return self._logits(x)[:, 0, :]

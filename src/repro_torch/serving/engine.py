@@ -11,6 +11,17 @@ Runs on the GPU unless ``device="cpu"`` is passed; without a GPU it
 raises.  Float32 matrix products are pinned to full float32 (no TF32) on
 the card, as the reference serves in float32.
 
+The engine keeps one decode cache on the device, a
+``models.model.StaticCache`` of the last batch's shape (B, ``max_len``,
+cross length) that each ``prefill`` of that shape refills in place, so
+its tensors keep their address from batch to batch.  On the card (and
+off a mesh) ``Model.decode_step`` then replays one CUDA graph of the
+step: the cache's first step runs eagerly and is captured, and every
+later step, of this batch and the next, is one replay.  A batch of
+another shape drops the cache, and its graph, before it makes its own:
+a cache is a whole KV or state cache (olmoe-1b-7b's at B=48 and 640
+positions is 8.05 GB), and no caller alternates shapes.
+
 Every ``serve`` records its spans (``obs.tracing``) in ``last_spans``: the
 root ``engine.serve`` (attrs B, S, decode_steps) over ``engine.pad`` (the
 host left-pad and the inputs' copy to the device), ``model.prefill`` (to
@@ -25,22 +36,24 @@ the spans' sums (``pad_s``, ``sample_s``, ``decode_host_s``,
 unpadded prompts), ``prefill_tokens`` (B x S, padding included),
 ``requested_tokens`` (the sum of ``max_new_tokens``) and
 ``decoded_tokens`` (B x the longest ``max_new_tokens``: every row decodes
-to the longest).  Given an ``obs`` handle, a sampled batch's spans also go
-to ``obs.tracer`` as one trace, and the counts and times add to the
-``engine.*`` counters of ``obs.metrics``.
+to the longest), ``graph_steps`` (decode steps a CUDA graph's replay
+served) and ``graph_captures`` (graphs captured in this call).  Given an
+``obs`` handle, a sampled batch's spans also go to ``obs.tracer`` as one
+trace, and the counts and times add to the ``engine.*`` counters of
+``obs.metrics``.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import MODALITY, Model, StaticCache
 from repro_torch.obs.tracing import SpanLog
 
 
@@ -68,7 +81,7 @@ def pin_float32() -> None:
 # ``last_stats`` keys that are also ``engine.*`` counters under ``obs``
 COUNTERS = ("prompt_tokens", "prefill_tokens", "requested_tokens",
             "decoded_tokens", "pad_s", "sample_s", "decode_host_s",
-            "readback_s")
+            "readback_s", "graph_steps", "graph_captures")
 
 
 class ServeEngine:
@@ -92,6 +105,7 @@ class ServeEngine:
         self.obs = obs if obs is not None and obs.enabled else None
         self.last_stats: Dict[str, float] = {}
         self.last_spans: List[dict] = []
+        self._kept: Optional[Tuple[tuple, StaticCache]] = None
 
     def _pad_batch(self, requests: List[Request]) -> np.ndarray:
         L = max(len(r.prompt_tokens) for r in requests)
@@ -122,6 +136,17 @@ class ServeEngine:
                 (B, cfg.num_audio_frames, cfg.d_model), device=dev)
         return batch
 
+    def _cache_for(self, batch: Dict[str, torch.Tensor]) -> StaticCache:
+        """The kept cache, where it has the batch's shape; else a new one,
+        made once the old one is let go."""
+        key = MODALITY.get(self.cfg.family)
+        shape = (batch["tokens"].shape[0], self.max_len,
+                 None if key is None else batch[key].shape[1])
+        if self._kept is None or self._kept[0] != shape:
+            self._kept = None
+            self._kept = (shape, self.model.static_cache(*shape))
+        return self._kept[1]
+
     def serve(self, requests: List[Request], *, seed: int = 0,
               extra_inputs: Optional[dict] = None) -> List[Completion]:
         B = len(requests)
@@ -135,7 +160,10 @@ class ServeEngine:
             with log.span("engine.pad", root):
                 batch = self._batch(requests, extra_inputs)
             with log.span("model.prefill", root):
-                logits, cache = self.model.prefill(batch, self.max_len)
+                kept = self._cache_for(batch)
+                captures, replays = kept.captures, kept.replays
+                logits, cache = self.model.prefill(batch, self.max_len,
+                                                   cache=kept)
                 self._sync()
             t1 = time.perf_counter()
             gen = torch.Generator(device=self.device)
@@ -170,6 +198,8 @@ class ServeEngine:
             "sample_s": log.total_s("engine.sample"),
             "decode_host_s": log.total_s("model.decode_step"),
             "readback_s": log.total_s("engine.readback"),
+            "graph_steps": kept.replays - replays,
+            "graph_captures": kept.captures - captures,
         }
         if self.obs is not None:
             for k in COUNTERS:

@@ -1203,3 +1203,147 @@ def test_custom_ops_fake_implementations_on_cuda_launch_nothing(dev):
     assert out.shape == q.shape and out.device.type == "cuda"
     assert y.shape == xh.shape and final.shape == (8, 32, 64, 128)
     assert (fa.LAUNCHES, sd.LAUNCHES) == (f0, s0)
+
+
+# ---------------------------------------------------------------------------
+# the decode step as a CUDA graph (``Model.decode_step`` over the engine's
+# ``StaticCache``)
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ["qwen1.5-0.5b", "olmoe-1b-7b", "deepseek-v2-236b",
+               "mamba2-370m", "zamba2-2.7b", "llama-3.2-vision-11b",
+               "seamless-m4t-medium"]
+GRAPH_LENS, GRAPH_MAX_LEN = (64, 20, 41), 100     # the reduced ring wraps
+GRAPH_SHORT = (30, 9, 17)           # a later batch of the same B, shorter
+
+
+def _graph_model(arch, dev):
+    """A reduced model on the card with its cross gates open, an engine
+    over it, and requests whose decode runs through the ring."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Request, ServeEngine
+    cfg = get_arch(arch).reduced()
+    model = Model(cfg, device=dev, seed=7)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gate") or name.endswith("gate_mlp"):
+                p.fill_(0.75)
+    eng = ServeEngine(cfg, model, max_len=GRAPH_MAX_LEN, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = {lens: [rng.integers(0, cfg.vocab_size, L, dtype=np.int32)
+                      for L in lens] for lens in (GRAPH_LENS, GRAPH_SHORT)}
+
+    def reqs(n, rows=len(GRAPH_LENS), lens=GRAPH_LENS):
+        return [Request(p, max_new_tokens=n, rid=i)
+                for i, p in enumerate(prompts[lens][:rows])]
+    return model, eng, reqs
+
+
+def _recorded(model):
+    """Record a clone of each step's logits (the graph's are its own
+    buffer) through an instance attribute over ``decode_step``."""
+    steps, orig = [], model.decode_step
+
+    def rec(cache, tokens):
+        logits, cache = orig(cache, tokens)
+        steps.append(logits.clone())
+        return logits, cache
+    object.__setattr__(model, "decode_step", rec)
+    return steps
+
+
+def _eager(model, batch, n):
+    """The eager loop over a plain cache: tokens (B, n), each step's
+    logits and the cache after the last step."""
+    logits, cache = model.prefill(batch, GRAPH_MAX_LEN)
+    cur, toks, steps = logits.argmax(-1), [], []
+    toks.append(cur)
+    for _ in range(n - 1):
+        logits, cache = model.decode_step(cache, cur[:, None])
+        steps.append(logits.clone())
+        cur = logits.argmax(-1)
+        toks.append(cur)
+    return torch.stack(toks, 1).cpu().numpy(), steps, cache
+
+
+def _same_cache(kept, cache):
+    assert sorted(kept) == sorted(cache) and kept["pos"] == cache["pos"]
+    for k in sorted(set(cache) - {"pos"}):
+        assert torch.equal(kept[k], cache[k]), k
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_replays_equal_the_eager_step(dev, arch):
+    """Served tokens and every step's logits of the graph-replaying engine
+    equal the eager ``decode_step`` loop's bit for bit; a shape's first
+    serve captures once and replays every step but the first, the next
+    serve only replays, and a new batch size captures once more.  A serve
+    of new, shorter prompts of the same B replays the same graph over the
+    refilled cache and still equals the eager loop over those prompts: a
+    tensor the refill left stale (the tail past the shorter prompts) or
+    put at a new address would show there."""
+    model, eng, reqs = _graph_model(arch, dev)
+
+    def served_and_eager(lens, captures, replays):
+        steps = _recorded(model)
+        out = eng.serve(reqs(12, lens=lens))
+        st = eng.last_stats
+        assert st["decode_steps"] == 11
+        assert (st["graph_captures"], st["graph_steps"]) == (captures,
+                                                             replays)
+        del model.decode_step
+        want, eager_steps, cache = _eager(
+            model, eng._batch(reqs(12, lens=lens), None), 12)
+        np.testing.assert_array_equal(np.stack([o.tokens for o in out]),
+                                      want)
+        assert len(steps) == len(eager_steps) == 11
+        for i, (g, e) in enumerate(zip(steps, eager_steps)):
+            assert torch.equal(g, e), i
+        _same_cache(eng._kept[1], cache)
+        return want
+
+    want = served_and_eager(GRAPH_LENS, 1, 10)
+    kept = eng._kept[1]
+    again = eng.serve(reqs(12))
+    st = eng.last_stats
+    assert (st["graph_captures"], st["graph_steps"]) == (0, 11)
+    np.testing.assert_array_equal(np.stack([o.tokens for o in again]), want)
+    served_and_eager(GRAPH_SHORT, 0, 11)
+    assert eng._kept[1] is kept
+    eng.serve(reqs(4, rows=2))
+    st = eng.last_stats
+    assert (st["graph_captures"], st["graph_steps"]) == (1, 2)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m",
+                                  "zamba2-2.7b"])
+def test_graph_capture_advances_no_state_twice(dev, arch):
+    """After a serve of one decode step (the eager step and the capture
+    of the same step) the kept KV, SSM and conv caches equal the eager
+    loop's after one step."""
+    model, eng, reqs = _graph_model(arch, dev)
+    eng.serve(reqs(2))
+    assert eng.last_stats["graph_captures"] == 1
+    assert eng.last_stats["graph_steps"] == 0
+    _, _, cache = _eager(model, eng._batch(reqs(2), None), 2)
+    _same_cache(eng._kept[1], cache)
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_step_makes_no_host_sync(dev, arch):
+    """The step a graph records (the device position) runs once under
+    ``set_sync_debug_mode("error")``: any host read of a device value
+    in it raises."""
+    model, eng, reqs = _graph_model(arch, dev)
+    logits, cache = model.prefill(eng._batch(reqs(2), None), GRAPH_MAX_LEN)
+    cur = logits.argmax(-1)[:, None]
+    pos = torch.full((), cache["pos"], dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            out = model._decode_at(cache, cur, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == (len(GRAPH_LENS), model.cfg.vocab_size)
