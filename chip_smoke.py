@@ -33,6 +33,12 @@ Phases, each fatal on failure (no result line is printed then):
                of its first call in that run, and timed there beside its
                bound on the route it takes (3xTF32 on the tensor cores) and
                on the CUDA cores (the bound of the design it replaced);
+               then flash's MLA instance at the dsv2-longprompt cell's
+               batch (16, 2048, 128 heads, q.k 192, v 128, deepseek-v2-ep8's
+               YaRN scale): one launch with the counters zeroed just
+               before, held to the plain version batch row by batch row in
+               float64 (a scale 1% off must miss the tolerance), timed
+               beside its bound and ``flash_mla_roofline``'s least time;
   5. lm vs cpu — the full-width model cut to one super-block (6 Mamba
                blocks + the shared block) on the card and on the CPU from
                the same weights: logits within a stated tolerance, greedy
@@ -144,16 +150,19 @@ Phases, each fatal on failure (no result line is printed then):
                layer's gates set to 1.0) and seamless-m4t-medium in full
                (24: 12 non-causal encoder, 12 decoder), both with seeded
                image embeddings or audio frames from ``data/pipeline``,
-               deepseek-v2-236b (MLA, no flash), stablelm-12b (flash at hd
+               deepseek-v2-236b (3 launches of flash's MLA instance
+               ``flash_mla``, counted apart), stablelm-12b (flash at hd
                160), command-r-plus-104b and qwen1.5-110b at full width,
-               depth cut to fit one card; 8 requests of up to 1024 prompt
-               tokens, 16 new tokens, max_len 1040, random float32
-               weights; launches zeroed just before and read just after,
+               depth cut to fit one card, and the port's deepseek-v2-ep8 as
+               configured (13 ``flash_mla`` launches); 8 requests of up
+               to 1024 prompt tokens, 16 new tokens, max_len 1040, random
+               float32 weights; launches zeroed just before and read just after,
                every step's logits finite (``[lm:<arch>]`` lines: prefill
                ms, decode tok/s, launches, card MiB, the cut); the vlm's
                and audio arch's prefill logits moved by their modality
                input (against the engine's zeros); flash held to its plain
-               version at every served shape and timed at olmoe's,
+               version at every served shape (MLA's batch row by batch row
+               in float64) and timed at olmoe's,
                stablelm's, llama's and seamless's encoder shapes, SSD at
                mamba2's, the prefill and decode step of olmoe, mamba2,
                llama and seamless profiled; then one full-width layer per
@@ -167,7 +176,9 @@ Phases, each fatal on failure (no result line is printed then):
                all-zero tensors drawn as noise) through ``loss_and_grads``
                and one ``make_train_step`` step, held to the same on the
                CPU (loss, aux, grad norm, every gradient; MoE router ids
-               compared first, a flip reported and the arch not held);
+               compared first, a flip reported and the arch not held;
+               GQA flash launched where the arch has GQA attention, the
+               MLA instance where it has MLA);
                the flash and SSD ``autograd.Function``s (kernel forward,
                backward by recomputing the plain version) against the
                plain version's autograd at qwen1.5-0.5b's (8, 1024, 16, 64)
@@ -1076,6 +1087,95 @@ def flash_at_serving_shape(run: dict, dev) -> dict:
                        pairs * 4 * hd, nbytes, [B, S, H, hd], err)
 
 
+# DeepSeek-V2's MLA prefill attention at the dsv2-longprompt cell's batch
+# (portbench/workloads/dsv2-longprompt.json): (B, S, heads, q.k dim, v dim)
+MLA_BENCH_SHAPE = (16, 2048, 128, 192, 128)
+MLA_WRONG_SCALE = 1.01   # a kernel whose scale is 1% off must miss FLASH_ATOL
+
+
+def mla_rows_err(q, k, v, causal: bool, scale: float, got) -> tuple:
+    """The MLA instance's output ``got`` against the plain version, batch
+    row by batch row in float64 (the plain scores of a whole batch at
+    (16, 2048, 128) would take 34 GB, and in float32 the plain version's
+    own error over 2048 keys is of FLASH_ATOL's size): (max abs error, the
+    first row's error of the plain version at MLA_WRONG_SCALE times the
+    scale, which has to exceed FLASH_ATOL for the check to tell a wrong
+    kernel).  Raises where the error exceeds FLASH_ATOL."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    torch.cuda.synchronize()
+    err, wrong = 0.0, None
+    for b in range(q.shape[0]):
+        args = [t[b:b + 1].double() for t in (q, k, v)]
+        want = flash_attention_torch(*args, causal=causal, scale=scale)
+        err = max(err, float((got[b:b + 1].double() - want).abs().max()))
+        if wrong is None:
+            off = flash_attention_torch(*args, causal=causal,
+                                        scale=scale * MLA_WRONG_SCALE)
+            wrong = float((off - want).abs().max())
+            del off
+        del want, args
+    if not err <= FLASH_ATOL < wrong:
+        raise AssertionError(f"flash_mla off by {err} at {tuple(q.shape)} "
+                             f"v {v.shape[3]} (tolerance {FLASH_ATOL}; a "
+                             f"scale {MLA_WRONG_SCALE}x off gives {wrong})")
+    return err, wrong
+
+
+def flash_mla_at_benchmark_shape(dev) -> dict:
+    """The flash kernel's MLA instance at MLA_BENCH_SHAPE, causal, with
+    deepseek-v2-ep8's YaRN scale: one call through the wrapper with the
+    launch counters zeroed just before (one ``flash_mla`` launch, no GQA
+    one), its output held to the plain version (``mla_rows_err``), then
+    the launch timed by CUDA events and by the profiler, beside its bound
+    on the route it takes (3xTF32 on the tensor cores, ``bound_entry``)
+    and beside the least time ``flash_mla_roofline`` divides by (every
+    FLOP at the TF32 rate, or the bytes)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.models.attention import _mla_scale
+
+    B, S, H, dk, dv = MLA_BENCH_SHAPE
+    scale = _mla_scale(get_arch("deepseek-v2-ep8").mla)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k = (torch.randn(B, S, H, dk, generator=gen, device=dev)
+            for _ in range(2))
+    v = torch.randn(B, S, H, dv, generator=gen, device=dev)
+    ops.reset_launches()
+    sd.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    launches = launch_counts(ops, sd)
+    if launches != {"flash_attention": 0, "flash_mla": 1, "ssd_scan": 0}:
+        raise AssertionError(f"flash_mla at {MLA_BENCH_SHAPE}: launches "
+                             f"{launches}")
+    err, wrong = mla_rows_err(q, k, v, True, scale, got)
+    lib = ops._mla_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def kernel():
+        lib.flash_mla_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             got.data_ptr(), B, S, H, H, dk, dv, 1,
+                             scale * ops.LOG2E, stream)
+    ms = cuda_ms(kernel, reps=5, inner=3, warmup=1)
+    device_ms, per_call, _ = kernel_device_ms_of(kernel, "flash_mla_",
+                                                 calls=3)
+    pairs = B * H * ops.visible_pairs(S, True, 0)
+    flops, nbytes = ops.launch_cost(B, S, H, H, dk, True, 0, dv)
+    t = bound_entry(ms, None, None, device_ms, per_call,
+                    pairs * (2 * dk + 2 * dv), pairs * FLASH_SOFTMAX_FLOPS,
+                    pairs * (2 * dk + 2 * dv), nbytes, [B, S, H, dk, dv],
+                    err)
+    hw = peaks()
+    t.update(least_ms=max(flops / hw.tf32_flops, nbytes / hw.hbm_bw) * 1e3,
+             launches=launches, wrong_scale_err=wrong, scale=scale)
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return t
+
+
 def ssd_at_serving_shape(run: dict, dev) -> dict:
     """The SSD kernel on the inputs of the first Mamba block's scan of the
     served prefill: against its plain version (y and final state), then
@@ -1237,12 +1337,14 @@ def lm_vs_cpu(dev) -> dict:
 # mamba2 1.5 GB, llama-vision 39.1 GB (9.78 B parameters: the reference's
 # param_count, 11.52 B, counts the 8 cross layers twice), seamless 3.9 GB,
 # deepseek 37.3 GB (the dense layer and 2 MoE layers), stablelm 8.6 GB,
-# command-r 25.2 GB, qwen110b 20.8 GB.
+# command-r 25.2 GB, qwen110b 20.8 GB; the port's deepseek-v2-ep8 (one
+# chip of DeepSeek-V2's 8-way expert parallelism, 13 layers, 20 of 160
+# experts) 37.7 GB as configured.
 LM_FAMILIES = {"olmoe-1b-7b": None, "qwen1.5-0.5b": None,
                "mamba2-370m": None, "llama-3.2-vision-11b": None,
                "seamless-m4t-medium": None, "deepseek-v2-236b": 3,
                "stablelm-12b": 4, "command-r-plus-104b": 2,
-               "qwen1.5-110b": 2}
+               "qwen1.5-110b": 2, "deepseek-v2-ep8": None}
 LIVE_GATE = 1.0       # the vlm's cross gates on the card (tanh 0.76): the
                       # reference's zero gates would shut every cross layer
 LIVE_MIN = 1e-3       # least max |prefill logits| change that the modality
@@ -1261,9 +1363,9 @@ def family_config(arch: str):
 
 
 def flash_per_prefill(cfg) -> int:
-    """Flash launches of one prefill: one per GQA self-attention layer
+    """GQA flash launches of one prefill: one per GQA self-attention layer
     (the vlm's self blocks; the audio arch's encoder and decoder blocks),
-    none for MLA or Mamba-2 alone."""
+    none for MLA (``mla_per_prefill``) or Mamba-2 alone."""
     if cfg.family == "vlm":
         per = cfg.cross_attn_every
         return cfg.num_layers // per * (per - 1)
@@ -1272,6 +1374,19 @@ def flash_per_prefill(cfg) -> int:
     if cfg.family == "ssm" or cfg.mla is not None:
         return 0
     return cfg.num_layers
+
+
+def mla_per_prefill(cfg) -> int:
+    """Launches of the flash kernel's MLA instance in one prefill: one per
+    MLA layer."""
+    return cfg.num_layers if cfg.mla is not None else 0
+
+
+def launch_counts(fa, sd) -> dict:
+    """The launch counters by kernel: the GQA flash kernel, its MLA
+    instance (``flash_mla_tc``, counted apart) and the SSD scan."""
+    return {"flash_attention": fa.LAUNCHES - fa.MLA_LAUNCHES,
+            "flash_mla": fa.MLA_LAUNCHES, "ssd_scan": sd.LAUNCHES}
 
 
 def modality_inputs(cfg, n: int, seed: int):
@@ -1333,10 +1448,11 @@ def serve_family(arch: str, dev) -> dict:
         sd.reset_launches()
         outs = engine.serve(reqs, seed=0, extra_inputs=extra)
         torch.cuda.synchronize()
-        launches = {"flash_attention": fa.LAUNCHES, "ssd_scan": sd.LAUNCHES}
+        launches = launch_counts(fa, sd)
     engine._sample = sample
     st = dict(engine.last_stats)
     want = {"flash_attention": flash_per_prefill(cfg),
+            "flash_mla": mla_per_prefill(cfg),
             "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0}
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want} "
@@ -1529,8 +1645,9 @@ def families_phase(dev) -> dict:
     family against the CPU."""
     import gc
     import torch
+    from repro_torch.kernels.flash_attention import ops as ops_fa
     t_phase = time.perf_counter()
-    runs, timed, breakdown, flash_errs = {}, {}, {}, {}
+    runs, timed, breakdown, flash_errs, mla_errs = {}, {}, {}, {}, {}
     for arch in LM_FAMILIES:
         run = serve_family(arch, dev)
         if arch in ("olmoe-1b-7b", "mamba2-370m", "llama-3.2-vision-11b",
@@ -1544,6 +1661,16 @@ def families_phase(dev) -> dict:
             flash_errs[arch] = timed[arch]["serving_max_abs_err"]
         elif run["launches_per_prefill"]["flash_attention"]:
             flash_errs[arch] = flash_check_at_serving_shape(run)[1]
+        elif run["launches_per_prefill"]["flash_mla"]:
+            q, k, v = run["flash_args"]
+            kw = run["flash_kwargs"]
+            got = ops_fa.flash_attention(q, k, v, **kw)
+            mla_errs[arch], _ = mla_rows_err(q, k, v, kw.get("causal", True),
+                                             kw["scale"], got)
+            log(f"[lm] flash_mla at {arch}'s serving shape "
+                f"{tuple(q.shape)} v {v.shape[3]} scale {kw['scale']}: "
+                f"max_abs_err={mla_errs[arch]:.3g} (rows in float64)")
+            del q, k, v, got
         if arch == "mamba2-370m":
             timed[arch] = ssd_at_serving_shape(run, dev)
         if arch in timed:
@@ -1569,10 +1696,11 @@ def families_phase(dev) -> dict:
     torch.cuda.empty_cache()
     launches = {k: {arch: r["launches_per_prefill"][k]
                     for arch, r in runs.items()}
-                for k in ("flash_attention", "ssd_scan")}
+                for k in ("flash_attention", "flash_mla", "ssd_scan")}
     log(f"[lm] phase 10 in {time.perf_counter() - t_phase:.1f}s")
     return {"runs": runs, "timed": timed, "breakdown": breakdown,
-            "layers": layers, "launches": launches, "flash_errs": flash_errs}
+            "layers": layers, "launches": launches, "flash_errs": flash_errs,
+            "mla_errs": mla_errs}
 
 # ---------------------------------------------------------------------------
 # phase 11: LM training on the card
@@ -1612,8 +1740,8 @@ class RouteLog:
         from repro_torch.models import moe
         self.moe, self.orig, self.ids = moe, moe.route, []
 
-        def spy(probs, K, C):
-            out = self.orig(probs, K, C)
+        def spy(probs, K, C, *rest):
+            out = self.orig(probs, K, C, *rest)
             self.ids.append(out[1].detach().cpu())
             return out
         moe.route = spy
@@ -1661,11 +1789,11 @@ def reduced_step_vs_cpu(arch: str, dev) -> dict:
     b = next(synthetic_lm_batches(cfg, 2, 64, seed=5))
     bc = {k: torch.from_numpy(v) for k, v in b.items()}
     bg = {k: v.to(dev) for k, v in bc.items()}
-    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    fa.reset_launches()
+    sd.reset_launches()
     with RouteLog() as rg:
         gg, lg, ag = loss_and_grads(gpu, bg)
-    launches = {"flash_attention": fa.LAUNCHES - f0,
-                "ssd_scan": sd.LAUNCHES - s0}
+    launches = launch_counts(fa, sd)
     with RouteLog() as rc:
         gc_, lc, ac = loss_and_grads(cpu, bc)
     flips = sum(int((a != c).any(-1).sum()) for a, c in zip(rg.ids, rc.ids))
@@ -1691,8 +1819,10 @@ def reduced_step_vs_cpu(arch: str, dev) -> dict:
         all(bool(torch.isfinite(p).all()) for p in gpu.parameters())
     log(f"[lm-train:{arch}:reduced] card vs CPU: {json.dumps(out)}")
     want_attn = cfg.family not in ("ssm",) and cfg.mla is None
+    want_mla = cfg.mla is not None
     want_ssd = cfg.family in ("ssm", "hybrid")
     if not finite or bool(launches["flash_attention"]) != want_attn or \
+            bool(launches["flash_mla"]) != want_mla or \
             bool(launches["ssd_scan"]) != want_ssd:
         raise AssertionError(f"{arch}: finite {finite}, launches "
                              f"{launches}")
@@ -1985,10 +2115,10 @@ def lm_train_phase(dev) -> dict:
     full = {arch: train_full(arch, dev) for arch in LM_TRAIN_ARCHS}
     launches = {k: {f"{a}:reduced": r["launches"][k]
                     for a, r in reduced.items()}
-                for k in ("flash_attention", "ssd_scan")}
+                for k in ("flash_attention", "flash_mla", "ssd_scan")}
     for k in launches:
         for a, r in full.items():
-            launches[k][a] = r["launches_per_step"][k] * r["steps"]
+            launches[k][a] = r["launches_per_step"].get(k, 0) * r["steps"]
     wall = time.perf_counter() - t_phase
     log(f"[lm-train] phase 11 in {wall:.1f}s")
     return {"reduced": reduced, "kernel_grads": grads, "full": full,
@@ -4279,7 +4409,8 @@ def main() -> int:
     from repro_torch.kernels.iou_matrix import ops
     from repro_torch.kernels.ssd_scan import ops as sd_ops
     t0 = time.perf_counter()
-    libs = build.build_all([ops.SOURCE, fa_ops.SOURCE, sd_ops.SOURCE])
+    libs = build.build_all([ops.SOURCE, fa_ops.SOURCE, fa_ops.MLA_SOURCE,
+                            sd_ops.SOURCE])
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f}s")
     for src, lib in libs.items():
         report = lib.with_suffix(".log")
@@ -4342,6 +4473,19 @@ def main() -> int:
     for key in ("flash_args", "ssd_args", "breakdown"):
         lm.pop(key)
     torch.cuda.empty_cache()
+    mla_t = flash_mla_at_benchmark_shape(dev)
+    log(f"[kernels] flash_mla at the dsv2-longprompt shape "
+        f"{mla_t['timed_shape']} scale {mla_t['scale']:.6f}: launches "
+        f"{json.dumps(mla_t['launches'])}, max_abs_err "
+        f"{mla_t['serving_max_abs_err']:.3g} (a {MLA_WRONG_SCALE}x scale: "
+        f"{mla_t['wrong_scale_err']:.3g}), kernel {mla_t['ms']:.4f} ms "
+        f"(device {mla_t['device_ms']} ms over "
+        f"{mla_t['cuda_launches_per_call']} CUDA kernels per call), bound "
+        f"{mla_t['bound_ms']:.4f} ms ({mla_t['bound_by']}, 3xTF32: "
+        f"{mla_t['mma_flops']} mma + {mla_t['flops'] - mla_t['mma_flops']} "
+        f"other flops, {mla_t['bytes']} bytes), least "
+        f"{mla_t['least_ms']:.4f} ms (flash_mla_roofline's: every flop at "
+        f"the TF32 rate)")
     cmp = lm_vs_cpu(dev)
     log(f"[lm] phases 4-5 in {time.perf_counter() - t0:.1f}s")
 
@@ -4494,6 +4638,26 @@ def main() -> int:
                                    "bound_by")}
             for a, ft in fam["timed"].items()
             if (a == "mamba2-370m") == (name == "ssd_scan")}
+    kernels.append({
+        "name": "flash_mla", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_mla.cu",
+        "replaces": "none: the reference's MLA prefill is an einsum "
+                    "(src/repro/models/attention.py mla_forward)",
+        "launches": mla_t["launches"]["flash_mla"]
+        + sum(fam["launches"]["flash_mla"].values())
+        + sum(lmt["launches"]["flash_mla"].values()),
+        "launches_by_arch": fam["launches"]["flash_mla"],
+        "launches_train_lm": lmt["launches"]["flash_mla"],
+        "max_abs_err": max([mla_t["serving_max_abs_err"]]
+                           + list(fam["mla_errs"].values())),
+        "serving_max_abs_err_by_arch": fam["mla_errs"],
+        "wrong_scale_err": mla_t["wrong_scale_err"],
+        "tolerance": f"abs {FLASH_ATOL}, batch rows in float64",
+        **{k: mla_t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "least_ms",
+            "library_ms", "device_ms", "timed_shape",
+            "cuda_launches_per_call", "bound_f32_cuda_core_ms")},
+    })
     log(f"[lm] summary: {json.dumps({k: v for k, v in lm.items() if k not in ('flash_kwargs', 'ssd_kwargs')})} "
         f"card-vs-cpu logits max_abs_err {cmp['max_abs_err']:.3g}")
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,15 @@ Every architecture has one module in this package exporting ``CONFIG``
 (the exact full-scale config); ``get_arch`` maps ``--arch <id>`` to it.
 ``reduced()`` derives the CPU-smoke variant (2 layers, d_model<=256, <=4
 experts).  ``SHAPES`` names the workload shapes (``get_shape``).
+
+The port adds fields the reference lacks, each defaulting to the
+reference's behaviour, so the reference's ten archs keep their values
+and their ``reduced()``: ``MoEConfig``'s expert share (``experts_held``
+experts from ``held_first``), DeepSeek-V2's group-limited routing
+(``n_group``, ``topk_group``), unnormalised gates (``norm_topk``) and
+``routed_scaling``; ``MLAConfig``'s YaRN rope (``yarn``).  They serve the
+port-only archs of ``PORT_ARCH_IDS``, which ``get_arch`` resolves beside
+``ARCH_IDS`` (the reference's list, unchanged).
 """
 from __future__ import annotations
 
@@ -26,6 +35,32 @@ class MoEConfig:
     # layer index predicate: layers < first_dense_layers are dense
     first_dense_layers: int = 0
     d_ff_dense: int = 0           # FFN dim of the dense (non-MoE) layers
+    # port only: this model holds experts [held_first, held_first +
+    # experts_held) of num_experts (0: all); the router still scores all
+    experts_held: int = 0
+    held_first: int = 0
+    # group-limited greedy top-k: experts in n_group groups, a token's
+    # top_k taken within its topk_group best groups (1, 1: plain top-k)
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk: bool = True        # renormalise the top-k gates to sum 1
+    routed_scaling: float = 1.0   # the routed gates' factor
+
+    @property
+    def held(self) -> int:
+        """The experts this model computes."""
+        return self.experts_held or self.num_experts
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """DeepSeek-V2's YaRN rope scaling (its config.json ``rope_scaling``)."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -35,6 +70,7 @@ class MLAConfig:
     qk_nope_head_dim: int
     qk_rope_head_dim: int
     v_head_dim: int
+    yarn: Optional[YarnConfig] = None     # port only: None is plain RoPE
 
 
 @dataclass(frozen=True)
@@ -132,7 +168,7 @@ class ArchConfig:
         ffn_dense = 3 * d * self.d_ff
         if self.moe is not None:
             mo = self.moe
-            ffn_moe = mo.num_experts * 3 * d * mo.d_expert \
+            ffn_moe = mo.held * 3 * d * mo.d_expert \
                 + mo.num_shared_experts * 3 * d * mo.d_shared + d * mo.num_experts
             n_moe_layers = self.num_layers - mo.first_dense_layers
             n += mo.first_dense_layers * (attn + 3 * d * mo.d_ff_dense)
@@ -156,8 +192,8 @@ class ArchConfig:
         if self.moe is None:
             return self.param_count()
         mo = self.moe
-        full_ffn = mo.num_experts * 3 * self.d_model * mo.d_expert
-        act_ffn = mo.top_k * 3 * self.d_model * mo.d_expert
+        full_ffn = mo.held * 3 * self.d_model * mo.d_expert
+        act_ffn = min(mo.top_k, mo.held) * 3 * self.d_model * mo.d_expert
         n_moe_layers = self.num_layers - mo.first_dense_layers
         return self.param_count() - n_moe_layers * (full_ffn - act_ffn)
 
@@ -177,17 +213,30 @@ class ArchConfig:
             encoder_layers=2 if self.encoder_layers else 0,
         )
         if self.moe is not None:
+            mo = self.moe
             kw["moe"] = MoEConfig(
                 num_experts=4, top_k=2, d_expert=64,
-                num_shared_experts=min(self.moe.num_shared_experts, 1),
-                d_shared=64 if self.moe.num_shared_experts else 0,
-                first_dense_layers=min(self.moe.first_dense_layers, 1),
-                d_ff_dense=128 if self.moe.first_dense_layers else 0,
+                num_shared_experts=min(mo.num_shared_experts, 1),
+                d_shared=64 if mo.num_shared_experts else 0,
+                first_dense_layers=min(mo.first_dense_layers, 1),
+                d_ff_dense=128 if mo.first_dense_layers else 0,
             )
+            if mo.n_group > 1 or mo.experts_held:
+                # the port's mechanisms kept on: 16 experts in 4 groups, a
+                # token's top 3 within its 2 best; a share of one group
+                kw["moe"] = dataclasses.replace(
+                    kw["moe"], num_experts=16, top_k=3, n_group=4,
+                    topk_group=2, experts_held=4 if mo.experts_held else 0,
+                    held_first=0, norm_topk=mo.norm_topk,
+                    routed_scaling=mo.routed_scaling)
         if self.mla is not None:
+            # YaRN kept, its original context cut to 32 positions, which
+            # the reduced tests' prompts cross
+            yarn = self.mla.yarn and dataclasses.replace(
+                self.mla.yarn, original_max_position=32)
             kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
                                   qk_nope_head_dim=hd, qk_rope_head_dim=hd // 2,
-                                  v_head_dim=hd)
+                                  v_head_dim=hd, yarn=yarn)
         if self.ssm is not None:
             kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=32,
                                   chunk=32)
@@ -226,10 +275,16 @@ ARCH_IDS = [
     "zamba2-2.7b",
     "seamless-m4t-medium",
 ]
+# archs of the port alone (the reference has no module for them)
+PORT_ARCH_IDS = [
+    "deepseek-v2-ep8",
+]
+
 
 def get_arch(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    if arch_id not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
     return mod.CONFIG

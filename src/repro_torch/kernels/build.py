@@ -19,7 +19,9 @@ SSD kernels are held to their plain versions within a float32 tolerance,
 so nvcc may contract their products into FMAs, as their speed needs.
 
 Every source may include the shared headers of ``include/`` (the 3xTF32
-mma and cp.async helpers); a library's key covers those headers too.
+mma and cp.async helpers) and the headers beside it in its own directory
+(``flash_attention/csrc/flash_tile.cuh``, the tile that two flash
+libraries instantiate); a library's key covers those headers too.
 """
 from __future__ import annotations
 
@@ -68,8 +70,9 @@ def nvcc_flags(source: Path) -> Tuple[str, ...]:
 
 
 def library_path(source: Path) -> Path:
+    own = sorted(Path(source).resolve().parent.glob("*.cuh"))
     headers = b"".join(h.read_bytes()
-                       for h in sorted(INCLUDE_DIR.glob("*.cuh")))
+                       for h in sorted(INCLUDE_DIR.glob("*.cuh")) + own)
     key = hashlib.sha256(Path(source).read_bytes() + headers
                          + " ".join(nvcc_flags(source)).encode()
                          ).hexdigest()[:16]

@@ -15,6 +15,16 @@ CUDA kernel per call: 3xTF32 products on the tensor cores, see
 those launches from their shapes (``launch_cost``), for the roofline,
 which sees no ctypes launch (``roofline/measure.py``).
 
+MLA (DeepSeek-V2's prefill): a v whose dim differs from q's and k's (q.k
+over 192 dims, v of 128) sends the call to the library of
+``csrc/flash_mla.cu`` instead (``flash_mla_tc``, the same tile at (dk,
+dv) with ``scale`` as an argument, default ``dk^-0.5``; one of
+``MLA_HEAD_DIMS``, built and loaded at its first call), so the GQA
+library above keeps its kernels, their names and their host-computed
+``hd^-0.5``.  A ``scale`` given to a call whose v has q's dim raises.
+MLA's launches count in ``MLA_LAUNCHES`` and also in ``LAUNCHES``,
+``FLOPS`` and ``BYTES``.
+
 Gradients: where q, k or v needs one (training), a CUDA call goes through
 ``FlashAttention``, an ``autograd.Function`` whose forward is the kernel
 and whose backward recomputes the plain version on the saved q, k, v and
@@ -26,7 +36,8 @@ version on the card.  A call that needs no gradient (serving, under
 Sharded and fake tensors: a ``DTensor`` (``launch/sharding.py``) or a
 fake tensor (``FakeTensorMode``, the dry run of ``launch/dryrun.py``)
 goes through the custom op ``torch.ops.repro_torch.flash_attention``
-instead, which DTensor and the dispatch modes see as one operator.  Its
+instead (``torch.ops.repro_torch.flash_mla``, with its scale, for an MLA
+call), which DTensor and the dispatch modes see as one operator.  Its
 CUDA and CPU implementation is the call above on the local tensors (the
 kernel for a CUDA shard, made contiguous first; the plain version for a
 CPU one); its fake implementation gives the output's shape and launches
@@ -45,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -54,22 +66,30 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_torch
 from repro_torch.obs.tracing import profile_range
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+MLA_SOURCE = SOURCE.with_name("flash_mla.cu")
 # head dims the kernel is instantiated for (csrc/flash_attention.cu)
 KERNEL_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 160)
+# (q.k dim, v dim) of the MLA instances (csrc/flash_mla.cu): DeepSeek-V2's
+# and its reduced archs'
+MLA_HEAD_DIMS = ((192, 128), (96, 64))
+LOG2E = 1.4426950408889634
 
 SOFTMAX_FLOPS = 5        # per visible pair: scale, max, sub, exp, sum
 BACKWARD_RANGE = "plain_flash_backward"   # profiler range of the backward
 
 LAUNCHES = 0
+MLA_LAUNCHES = 0         # those of LAUNCHES that ran the MLA library
 FLOPS = 0                # of the launches counted in LAUNCHES
 BYTES = 0
 _LIB = None
+_MLA_LIB = None
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and the ``FLOPS``/``BYTES`` of those launches."""
-    global LAUNCHES, FLOPS, BYTES
-    LAUNCHES = FLOPS = BYTES = 0
+    """Zero ``LAUNCHES``, ``MLA_LAUNCHES`` and the ``FLOPS``/``BYTES`` of
+    those launches."""
+    global LAUNCHES, MLA_LAUNCHES, FLOPS, BYTES
+    LAUNCHES = MLA_LAUNCHES = FLOPS = BYTES = 0
 
 
 def visible_pairs(S: int, causal: bool, window: int) -> int:
@@ -81,13 +101,14 @@ def visible_pairs(S: int, causal: bool, window: int) -> int:
 
 
 def launch_cost(B: int, S: int, H: int, K: int, hd: int, causal: bool,
-                window: int):
-    """(flops, bytes) of one launch: 4*hd flops per visible pair and head
-    (q.k and p.v) plus the softmax's, q, k, v read once and the output
-    written once."""
+                window: int, dv: int = 0):
+    """(flops, bytes) of one launch: 2*hd + 2*dv flops per visible pair and
+    head (q.k over hd, p.v over v's ``dv``, default hd) plus the
+    softmax's, q, k, v read once and the output written once."""
+    dv = dv or hd
     pairs = B * H * visible_pairs(S, causal, window)
-    return (pairs * (4 * hd + SOFTMAX_FLOPS),
-            4 * (2 * B * S * H * hd + 2 * B * S * K * hd))
+    return (pairs * (2 * hd + 2 * dv + SOFTMAX_FLOPS),
+            4 * (B * S * H * (hd + dv) + B * S * K * (hd + dv)))
 
 
 def _library() -> ctypes.CDLL:
@@ -102,6 +123,21 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _mla_library() -> ctypes.CDLL:
+    """The MLA instances' library (built at its first use)."""
+    global _MLA_LIB
+    if _MLA_LIB is None:
+        lib = build.load(MLA_SOURCE)
+        lib.flash_mla_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                          ctypes.c_void_p])
+        lib.flash_mla_launch.restype = ctypes.c_int
+        lib.flash_mla_error_string.argtypes = [ctypes.c_int]
+        lib.flash_mla_error_string.restype = ctypes.c_char_p
+        _MLA_LIB = lib
+    return _MLA_LIB
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -119,7 +155,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.device.type not in ("cuda", "cpu"):
             raise ValueError(f"{name} lies on unsupported device {t.device}")
     B, S, H, hd = q.shape
-    if k.shape != v.shape:
+    if k.shape[:3] != v.shape[:3]:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
@@ -143,30 +179,73 @@ def _kernel(q, k, v, out, causal: bool, window: int) -> None:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, H, k.shape[2], hd, int(bool(causal)), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, lib.flash_attention_error_string, "flash_attention")
+
+
+def _mla_kernel(q, k, v, out, causal: bool, scale: float) -> None:
+    """One launch of the MLA instance on the current stream; raises on a
+    CUDA error."""
+    B, S, H, dk = q.shape
+    lib = _mla_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_mla_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, H, k.shape[2], dk, v.shape[3], int(bool(causal)),
+            scale * LOG2E,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, lib.flash_mla_error_string, "flash_mla")
+
+
+def _raise_on(err: int, error_string, name: str) -> None:
     if err:
-        msg = lib.flash_attention_error_string(err)
+        msg = error_string(err)
         raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {err} "
+            f"{name} kernel launch failed: CUDA error {err} "
             f"({msg.decode() if msg else 'unknown'})")
 
 
-def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    global LAUNCHES, FLOPS, BYTES
+def _is_mla(q, v, scale) -> bool:
+    """A call for the MLA library: v's dim differs from q's.  A scale is
+    MLA's alone: given to any other call, it raises."""
+    if v.shape[3] != q.shape[3]:
+        return True
+    if scale is not None:
+        raise ValueError(f"a scale is taken only by the MLA kernel (v's dim "
+                         f"differs from q's); q and v have dim {q.shape[3]}, "
+                         f"the GQA kernel scales by its inverse square root")
+    return False
+
+
+def _launch(q, k, v, causal: bool, window: int,
+            scale: Optional[float] = None) -> torch.Tensor:
+    global LAUNCHES, MLA_LAUNCHES, FLOPS, BYTES
     B, S, H, hd = q.shape
-    K = k.shape[2]
-    if hd not in KERNEL_HEAD_DIMS:
+    K, dv = k.shape[2], v.shape[3]
+    mla = _is_mla(q, v, scale)
+    if mla:
+        if (hd, dv) not in MLA_HEAD_DIMS:
+            raise ValueError(f"q.k dim {hd} and v dim {dv} not supported by "
+                             f"the MLA kernel (one of {MLA_HEAD_DIMS})")
+        if window:
+            raise ValueError("the MLA kernel takes no window")
+    elif hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported by the kernel "
                          f"(one of {KERNEL_HEAD_DIMS})")
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, dv))
     if out.numel() == 0:
         return out
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte "
                              f"copies)")
-    _kernel(q, k, v, out, causal, window)
+    if mla:
+        _mla_kernel(q, k, v, out, causal,
+                    hd ** -0.5 if scale is None else scale)
+        MLA_LAUNCHES += 1
+    else:
+        _kernel(q, k, v, out, causal, window)
     LAUNCHES += 1
-    flops, nbytes = launch_cost(B, S, H, K, hd, causal, window)
+    flops, nbytes = launch_cost(B, S, H, K, hd, causal, window, dv)
     FLOPS += flops
     BYTES += nbytes
     return out
@@ -177,29 +256,33 @@ class FlashAttention(torch.autograd.Function):
     version on the saved q, k, v, differentiated by autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                scale: Optional[float] = None):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, causal, window)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return _launch(q, k, v, causal, window, scale)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        return _backward(ctx, grad_out)
+        return _backward(ctx, grad_out) + (None,)
 
 
 def _backward(ctx, grad_out):
     """The plain version recomputed on the saved q, k, v and
     differentiated (``FlashAttention``)."""
     return _plain_grads(ctx.saved_tensors, grad_out, ctx.needs_input_grad[:3],
-                        ctx.causal, ctx.window) + (None, None)
+                        ctx.causal, ctx.window,
+                        getattr(ctx, "scale", None)) + (None, None)
 
 
-def _plain_grads(saved, grad_out, need, causal: bool, window: int):
+def _plain_grads(saved, grad_out, need, causal: bool, window: int,
+                 scale: Optional[float] = None):
     # the range lets a profile read the recompute's device time apart
     with torch.enable_grad(), profile_range(BACKWARD_RANGE):
         ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-        out = flash_attention_torch(*ins, causal=causal, window=window)
+        out = flash_attention_torch(*ins, causal=causal, window=window,
+                                    scale=scale)
         grads = iter(torch.autograd.grad(
             out, [t for t in ins if t.requires_grad], grad_out))
     return tuple(next(grads) if n else None for n in need)
@@ -228,7 +311,7 @@ def _backward_op(ctx, grad_out):
     ins = [t.redistribute(mesh, place) for t in (q, k, v)]
     g = grad_out.redistribute(mesh, place)
     local = _plain_grads([t.to_local() for t in ins], g.to_local(), need,
-                         ctx.causal, ctx.window)
+                         ctx.causal, ctx.window, getattr(ctx, "scale", None))
     return tuple(None if lg is None else DTensor.from_local(
         lg.contiguous(), mesh, place, run_check=False, shape=t.shape,
         stride=t.stride())
@@ -239,22 +322,41 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def reaches_kernel(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` launches a kernel, itself or through the
+    custom op on each rank's shard: a plain tensor or a DTensor on the
+    card, not a fake tensor."""
+    from torch._subclasses.fake_tensor import is_fake
+    return _on_card(t) and not is_fake(t)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, S, K, hd) float32 -> (B, S, H, hd)."""
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, H, hd); k: (B, S, K, hd), v: (B, S, K, dv) float32 ->
+    (B, S, H, dv); dv != hd takes the MLA library, and only such a call
+    takes a ``scale`` (default ``hd^-0.5``)."""
     sharded = is_sharded_or_fake(q, k, v)
     _check(q, k, v, contiguous=not sharded)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    mla = _is_mla(q, v, scale)
     if sharded:
+        if mla:
+            if window:
+                raise ValueError("the MLA kernel takes no window")
+            return torch.ops.repro_torch.flash_mla(
+                q, k, v, causal, q.shape[3] ** -0.5 if scale is None
+                else float(scale))
         return torch.ops.repro_torch.flash_attention(q, k, v, causal,
                                                      window)
     if _on_card(q):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return FlashAttention.apply(q, k, v, causal, window)
-        return _launch(q, k, v, causal, window)
-    return flash_attention_torch(q, k, v, causal=causal, window=window)
+            return FlashAttention.apply(q, k, v, causal, window, scale)
+        return _launch(q, k, v, causal, window, scale)
+    return flash_attention_torch(q, k, v, causal=causal, window=window,
+                                 scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +392,34 @@ flash_attention_op.register_autograd(_backward_op,
                                      setup_context=_setup_context)
 
 
+@torch.library.custom_op("repro_torch::flash_mla", mutates_args=())
+def flash_mla_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float) -> torch.Tensor:
+    """The wrapper's MLA call on local tensors: the MLA kernel on the
+    card, the plain version on the CPU."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    _check(q, k, v)
+    if _on_card(q):
+        return _launch(q, k, v, causal, 0, scale)
+    return flash_attention_torch(q, k, v, causal=causal,
+                                 scale=scale).contiguous()
+
+
+@flash_mla_op.register_fake
+def _(q, k, v, causal, scale):
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+def _setup_mla_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.window, ctx.scale = causal, 0, scale
+
+
+flash_mla_op.register_autograd(_backward_op,
+                               setup_context=_setup_mla_context)
+
+
 def _register_formulas() -> None:
     from torch.utils.flop_counter import register_flop_formula
 
@@ -298,19 +428,29 @@ def _register_formulas() -> None:
         B, S, H, hd = q
         return launch_cost(B, S, H, k[2], hd, causal, window)[0]
 
+    @register_flop_formula(torch.ops.repro_torch.flash_mla)
+    def _mla_flops(q, k, v, causal, scale, *args, out_shape=None, **kwargs):
+        B, S, H, dk = q
+        return launch_cost(B, S, H, k[2], dk, causal, 0, v[3])[0]
+
     if not torch.distributed.is_available():
         return
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 
-    @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _sharding(q, k, v, causal, window):
+    # replicated, sharded over the batch, or over the heads where both
+    # head counts divide every mesh dim (a rank holds whole GQA groups)
+    def _sharding(q, k, v, causal, window_or_scale):
         rules = [([Replicate()], [Replicate()] * 3 + [None, None]),
                  ([Shard(0)], [Shard(0)] * 3 + [None, None])]
         n = max(q.mesh.shape)
         if q.shape[2] % n == 0 and k.shape[2] % n == 0:
             rules.append(([Shard(2)], [Shard(2)] * 3 + [None, None]))
         return rules
+
+    for op in (torch.ops.repro_torch.flash_attention.default,
+               torch.ops.repro_torch.flash_mla.default):
+        register_sharding(op)(_sharding)
 
 
 _register_formulas()

@@ -18,10 +18,18 @@ lies inside a cache that is no ring is checked by ``Model.decode_step``
 
 GQA's full-sequence attention goes through the flash-attention kernel
 (``kernels.flash_attention.ops``); the one-token decode stays plain
-PyTorch (``sdpa`` over the cache), as in the reference.  MLA is plain
-PyTorch in both: its prefill is the reference's own einsum (q.k over 192
-dims, v of 128, which the flash kernel does not take), its decode the
-weight-absorbed form.  Cross-attention is plain PyTorch too (``sdpa``
+PyTorch (``sdpa`` over the cache), as in the reference.  MLA's prefill on
+the card goes through the flash kernel's MLA instance (q.k over 192 dims,
+v of 128, MLA's scale: ``flash_ops`` ``MLA_HEAD_DIMS``) on q and k
+concatenated from their latent and rope parts, and never forms the (B, H,
+S, S) scores (a DTensor on the card too, through the custom op on each
+rank's shard); on the CPU and on fake tensors (the dry run) it is the
+reference's own einsum.  MLA's decode is the weight-absorbed form, plain
+PyTorch.  Where ``MLAConfig.yarn`` is set (a port-only arch), MLA's rope
+takes YaRN's frequencies and its softmax scale YaRN's ``mscale`` squared,
+in prefill and decode alike.  Under a profiler MLA opens ``mla.project`` (the
+projections) and ``mla.attend`` (the attention) inside the block's
+``model.attention``.  Cross-attention is plain PyTorch too (``sdpa``
 with no mask, as the reference's ``_sdpa``): its keys are the source's
 (image tokens or encoder frames), a length the flash kernel, like the
 Pallas kernel it ports, does not take beside the query's.
@@ -56,7 +64,8 @@ from repro_torch.device import einsum, is_dtensor, local_range, relayout
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import sdpa
 from repro_torch.models.layers import (F32, apply_norm, apply_rope,
-                                       dense_init, init_norm)
+                                       dense_init, init_norm, yarn_mscale)
+from repro_torch.obs.tracing import profile_range
 
 NEG_INF = -1e30
 
@@ -334,13 +343,17 @@ def init_mla(cfg: ArchConfig, gen: Optional[torch.Generator], dev) -> Dict:
     }
 
 
+def _mla_rope(x: torch.Tensor, positions, m: MLAConfig) -> torch.Tensor:
+    return apply_rope(x, positions, 10000.0, m.yarn)
+
+
 def _mla_q(p, x: torch.Tensor, m: MLAConfig, H: int, positions):
     B, S, _ = x.shape
     cq = apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm")
     q = (cq @ p["wq_b"]).reshape(B, S, H,
                                  m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope = q[..., :m.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, 10000.0)
+    q_rope = _mla_rope(q[..., m.qk_nope_head_dim:], positions, m)
     return q_nope, q_rope
 
 
@@ -348,37 +361,64 @@ def _mla_latent(p, x: torch.Tensor, m: MLAConfig, positions):
     ckv = x @ p["wkv_a"]
     latent = apply_norm(p["kv_norm"], ckv[..., :m.kv_lora_rank], "rmsnorm")
     k_rope = ckv[..., None, m.kv_lora_rank:]            # (B,S,1,rope)
-    k_rope = apply_rope(k_rope, positions, 10000.0)[..., 0, :]
+    k_rope = _mla_rope(k_rope, positions, m)[..., 0, :]
     return latent, k_rope
 
 
 def _mla_scale(m: MLAConfig) -> float:
-    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    """q.k's scale: (nope + rope)^-0.5, times YaRN's ``mscale_all_dim``
+    factor squared where the arch sets it (DeepSeek-V2's
+    ``softmax_scale``)."""
+    s = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if m.yarn is not None and m.yarn.mscale_all_dim:
+        s *= yarn_mscale(m.yarn.factor, m.yarn.mscale_all_dim) ** 2
+    return s
 
 
 def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, *, causal: bool = True,
                 return_cache: bool = False):
-    """Full-sequence MLA (prefill).  The reference pins the scores to a
-    (data, model) mesh layout (``_score_constraint``), a no-op without a
-    JAX mesh, left out here.  The (B, H, S, S) scores are summed, scaled
-    and masked in place (one buffer fewer at full width)."""
+    """Full-sequence MLA (prefill).  On the card, plain or sharded: one
+    flash call (the MLA instance) over q (B, S, H, nope + rope), k (the
+    decompressed nope keys beside the rope key, broadcast over the heads)
+    and v.  On the CPU and on fake tensors the reference's einsum: it
+    pins the scores to a (data, model) mesh layout
+    (``_score_constraint``), a no-op without a JAX mesh, left out here;
+    the (B, H, S, S) scores are summed, scaled and masked in place (one
+    buffer fewer at full width)."""
     m, H = cfg.mla, cfg.num_heads
     B, S, _ = x.shape
-    q_nope, q_rope = _mla_q(p, x, m, H, positions)
-    latent, k_rope = _mla_latent(p, x, m, positions)
-    k_nope = (latent @ p["wk_b"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (latent @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
-    scores = einsum("bshn,bthn->bhst", q_nope, k_nope)
-    scores += einsum("bshr,btr->bhst", q_rope, k_rope)
-    scores *= _mla_scale(m)
-    if causal:
-        i = torch.arange(S, device=x.device)
-        scores.masked_fill_(i[None, :] > i[:, None], NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    del scores
-    out = einsum("bhst,bthv->bshv", w, v).reshape(B, S, -1)
-    y = out @ p["wo"]
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    with profile_range("mla.project"):
+        q_nope, q_rope = _mla_q(p, x, m, H, positions)
+        latent, k_rope = _mla_latent(p, x, m, positions)
+        k_nope = (latent @ p["wk_b"]).reshape(B, S, H, nope)
+        v = (latent @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    if flash_ops.reaches_kernel(x):
+        with profile_range("mla.project"):
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            del q_nope, q_rope
+            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H,
+                                                                rope)],
+                          dim=-1)
+            del k_nope
+        with profile_range("mla.attend"):
+            out = flash_ops.flash_attention(q, k, v, causal=causal,
+                                            scale=_mla_scale(m))
+        del q, k, v
+    else:
+        with profile_range("mla.attend"):
+            scores = einsum("bshn,bthn->bhst", q_nope, k_nope)
+            scores += einsum("bshr,btr->bhst", q_rope, k_rope)
+            scores *= _mla_scale(m)
+            if causal:
+                i = torch.arange(S, device=x.device)
+                scores.masked_fill_(i[None, :] > i[:, None], NEG_INF)
+            w = torch.softmax(scores, dim=-1)
+            del scores
+            out = einsum("bhst,bthv->bshv", w, v)
+    with profile_range("mla.project"):
+        y = out.reshape(B, S, -1) @ p["wo"]
     if return_cache:
         return y, (latent, k_rope)
     return y
@@ -396,21 +436,24 @@ def mla_decode(p, x: torch.Tensor, pos: int, cache_latent: torch.Tensor,
     if not isinstance(pos, torch.Tensor) and pos >= W:
         raise ValueError(f"decode position {pos} is past the cache ({W})")
     positions = _positions(pos, B, x.device)
-    q_nope, q_rope = _mla_q(p, x, m, H, positions)       # (B,1,H,.)
-    latent, k_rope = _mla_latent(p, x, m, positions)     # (B,1,kv_lora),...
-    _write_slot(cache_latent, pos, latent[:, 0])
-    _write_slot(cache_krope, pos, k_rope[:, 0])
-    # absorb wk_b into the query:  q_lat[h] = q_nope[h] @ wk_b[:, h, :].T
-    wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
-    q_lat = einsum("bshn,lhn->bshl", q_nope, wk_b)  # (B,1,H,kv_lora)
-    scores = (einsum("bshl,btl->bhst", q_lat, cache_latent)
-              + einsum("bshr,btr->bhst", q_rope, cache_krope))
-    scores = scores * _mla_scale(m)
-    valid = torch.arange(W, device=x.device) <= pos
-    scores = scores.masked_fill(~valid, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    ctx_lat = einsum("bhst,btl->bshl", w, cache_latent)
-    wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
-    out = einsum("bshl,lhv->bshv", ctx_lat, wv_b).reshape(B, 1, -1)
-    y = out @ p["wo"]
+    with profile_range("mla.project"):
+        q_nope, q_rope = _mla_q(p, x, m, H, positions)       # (B,1,H,.)
+        latent, k_rope = _mla_latent(p, x, m, positions)     # (B,1,kv_lora)
+        _write_slot(cache_latent, pos, latent[:, 0])
+        _write_slot(cache_krope, pos, k_rope[:, 0])
+    with profile_range("mla.attend"):
+        # absorb wk_b into the query: q_lat[h] = q_nope[h] @ wk_b[:, h, :].T
+        wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+        q_lat = einsum("bshn,lhn->bshl", q_nope, wk_b)  # (B,1,H,kv_lora)
+        scores = (einsum("bshl,btl->bhst", q_lat, cache_latent)
+                  + einsum("bshr,btr->bhst", q_rope, cache_krope))
+        scores = scores * _mla_scale(m)
+        valid = torch.arange(W, device=x.device) <= pos
+        scores = scores.masked_fill(~valid, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        ctx_lat = einsum("bhst,btl->bshl", w, cache_latent)
+        wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+        out = einsum("bshl,lhv->bshv", ctx_lat, wv_b).reshape(B, 1, -1)
+    with profile_range("mla.project"):
+        y = out @ p["wo"]
     return y, (cache_latent, cache_krope)

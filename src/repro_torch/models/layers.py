@@ -130,15 +130,53 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(scale) + 1`` (1 where
+    ``scale <= 1``)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_freqs(head_dim: int, theta: float, yarn, device=None
                ) -> torch.Tensor:
+    """DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding`` frequencies
+    (``yarn`` a ``configs.base.YarnConfig``): the plain ones where a
+    dimension turns more than ``beta_fast`` times over the original
+    context, those over ``factor`` where it turns less than ``beta_slow``
+    times, a linear ramp between."""
+    extra = rope_freqs(head_dim, theta, device)
+    inter = extra / yarn.factor
+
+    def dim_of(turns: float) -> float:
+        return head_dim * math.log(yarn.original_max_position
+                                   / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(dim_of(yarn.beta_fast)), 0)
+    high = min(math.ceil(dim_of(yarn.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+    keep = 1.0 - torch.clamp((i - low) / (high - low), 0, 1)
+    return inter * (1 - keep) + extra * keep
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn=None) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: broadcastable to
-    (..., seq)."""
+    (..., seq).  ``yarn`` (a ``configs.base.YarnConfig``) takes YaRN's
+    frequencies and scales cos and sin by its ``mscale`` ratio."""
     head_dim = x.shape[-1]
-    inv = rope_freqs(head_dim, theta, x.device)              # (half,)
+    if yarn is None:
+        inv = rope_freqs(head_dim, theta, x.device)          # (half,)
+    else:
+        inv = yarn_freqs(head_dim, theta, yarn, x.device)
     ang = positions.float()[..., None] * inv                 # (..., seq, half)
     cos = torch.cos(ang)[..., None, :]                       # (..., seq, 1, half)
     sin = torch.sin(ang)[..., None, :]
+    if yarn is not None:
+        m = yarn_mscale(yarn.factor, yarn.mscale) \
+            / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

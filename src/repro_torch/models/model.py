@@ -62,11 +62,18 @@ the card, off a mesh, ``decode_step`` replays a CUDA graph of its step
 
 Under ``torch.profiler`` every block opens a range by kind, so a trace
 puts device time and idle gaps down to it: ``model.attention`` (self or
-cross, with its norm), ``model.ffn`` (dense MLP or MoE, with its norm;
-``moe_dispatch_combine`` nests inside), ``model.mamba`` and
+cross, with its norm; MLA's ``mla.project`` and ``mla.attend`` nest
+inside), ``model.ffn`` (dense MLP or MoE, with its norm; ``moe.route``
+and ``moe_dispatch_combine`` nest inside), ``model.mamba`` and
 ``model.unembed`` (final norm and logits).  Without a profiler each costs
 one flag check (``obs.tracing.profile_range``).  A replayed CUDA graph
 runs no Python, so inside it no range opens.
+
+An expert share (``MoEConfig.experts_held``) counts its prefill's routed
+choices on the device: ``moe_counts`` (int64 (2,): the choices that land
+on the held experts, those kept within capacity), zeroed by each
+``prefill`` and summed over its MoE layers; the decode step counts
+nothing.  ``ServeEngine`` reads it once a batch, after its readback.
 """
 from __future__ import annotations
 
@@ -114,18 +121,20 @@ def _init_block(cfg: ArchConfig, gen: Optional[torch.Generator], dev, *,
     return p
 
 
-def _ffn(p, h: torch.Tensor, cfg: ArchConfig):
-    """The block's FFN -> (out, MoE aux loss or 0)."""
+def _ffn(p, h: torch.Tensor, cfg: ArchConfig, counts=None):
+    """The block's FFN -> (out, MoE aux loss or 0); ``counts`` as in
+    ``moe.apply_moe``."""
     if "moe" in p:
-        return moe_lib.apply_moe(p["moe"], h, cfg.moe, cfg.act)
+        return moe_lib.apply_moe(p["moe"], h, cfg.moe, cfg.act, counts)
     return apply_mlp(p["mlp"], h, cfg.act), 0.0
 
 
 def _block_forward(p, x, positions, cfg: ArchConfig, *, causal=True,
-                   window: int = 0):
+                   window: int = 0, counts=None):
     """Pre-norm attention + FFN over the full sequence -> (x, aux, cache):
     cache (k, v) for GQA, (latent, k_rope) for MLA.  ``window`` applies to
-    GQA only, as in the reference."""
+    GQA only, as in the reference; ``counts`` is an expert share's
+    (``Model.moe_counts``)."""
     with profile_range("model.attention"):
         h = apply_norm(p["norm1"], x, cfg.norm)
         if cfg.mla is not None:
@@ -139,11 +148,11 @@ def _block_forward(p, x, positions, cfg: ArchConfig, *, causal=True,
         a = settle(a)
     if cfg.parallel_block:
         with profile_range("model.ffn"):
-            m, aux = _ffn(p, h, cfg)
+            m, aux = _ffn(p, h, cfg, counts)
             return x + a + settle(m), aux, cache
     x = x + a
     with profile_range("model.ffn"):
-        m, aux = _ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg)
+        m, aux = _ffn(p, apply_norm(p["norm2"], x, cfg.norm), cfg, counts)
         return x + settle(m), aux, cache
 
 
@@ -332,6 +341,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.mesh = None        # set by launch.sharding.shard_model
         self.param_use = None   # ditto (ParamTree.use)
+        self.moe_counts: Optional[torch.Tensor] = None   # an expert share's
         dev = resolve_device(device)
         gen = None
         if init:
@@ -658,9 +668,10 @@ class Model(nn.Module):
         window = self._window_for(max_len)
         W = window or max_len
         if cfg.family in ("dense", "moe"):
+            counts = self._share_counts()
             for lp, ca, cb in self._attn_layers(cache):
                 x, _, (a, b) = _block_forward(lp, x, positions, cfg,
-                                              window=window)
+                                              window=window, counts=counts)
                 ca[...] = _ring_place(a, S, W)
                 cb[...] = _ring_place(b, S, W)
         elif cfg.family == "vlm":
@@ -701,6 +712,17 @@ class Model(nn.Module):
                 cache["v"][s] = _ring_place(v, S, Wa)
         logits = self._logits(x[:, -1:, :])[:, 0, :]
         return logits, cache
+
+    def _share_counts(self) -> Optional[torch.Tensor]:
+        """An expert share's ``moe_counts``, zeroed for a prefill (made at
+        the first); None for any other model, and off a mesh only."""
+        mo = self.cfg.moe
+        if mo is None or not mo.experts_held or self.mesh is not None:
+            return None
+        if self.moe_counts is None:
+            self.moe_counts = torch.zeros(2, dtype=torch.long,
+                                          device=self.device)
+        return self.moe_counts.zero_()
 
     # ----- decode -------------------------------------------------------------
     @torch.no_grad()

@@ -20,6 +20,18 @@ mesh layout (``_ep_constraint``, groups over "data", experts over
 logits' gradient is pinned to the tokens' own layout.  Values do not
 change.  The products are plain PyTorch, as the reference leaves them to
 XLA (no Pallas kernel).
+
+Port only (``MoEConfig`` fields at their defaults keep the reference's
+routing, op for op): DeepSeek-V2's ``MoEGate`` routing
+(``group_limited``: a group's score is its best expert's, a token's top-k
+taken within its ``topk_group`` best of ``n_group`` groups; gates not
+renormalised with ``norm_topk`` off, times ``routed_scaling``), and an
+expert share: a model holding ``experts_held`` experts from ``held_first``
+routes over all ``num_experts`` (capacity and slots as over the whole
+layer), dispatches to and computes only its own, and a choice of an
+absent expert adds nothing (another device computes it).  A share counts
+the prefill's choices that land on it and those kept within capacity
+(``counts``, on the device).
 """
 from __future__ import annotations
 
@@ -39,9 +51,9 @@ GROUP_SIZE = 256
 
 def init_moe(d_model: int, mo: MoEConfig, gen: Optional[torch.Generator],
              dev) -> Dict:
-    E, dff = mo.num_experts, mo.d_expert
+    E, dff = mo.held, mo.d_expert
     p = {
-        "router": dense_init((d_model, E), gen, dev, scale=0.1),
+        "router": dense_init((d_model, mo.num_experts), gen, dev, scale=0.1),
         "w_gate": dense_init((E, d_model, dff), gen, dev),
         "w_up": dense_init((E, d_model, dff), gen, dev),
         "w_down": dense_init((E, dff, d_model), gen, dev),
@@ -69,13 +81,32 @@ def capacity(tokens_per_group: int, mo: MoEConfig) -> int:
     return max(4, min(c, tokens_per_group))
 
 
-def route(probs: torch.Tensor, K: int, C: int):
+def group_limited(probs: torch.Tensor, n_group: int, topk_group: int
+                  ) -> torch.Tensor:
+    """``probs`` (..., E) with every expert outside the token's
+    ``topk_group`` best groups zeroed; a group (E / n_group experts in a
+    row) scores its best expert's probability."""
+    shape = probs.shape
+    grouped = probs.reshape(*shape[:-1], n_group, shape[-1] // n_group)
+    best = torch.topk(grouped.amax(dim=-1), topk_group, dim=-1).indices
+    keep = torch.zeros_like(grouped[..., 0]).scatter_(-1, best, 1.0)
+    return (grouped * keep[..., None]).reshape(shape)
+
+
+def route(probs: torch.Tensor, K: int, C: int, mo: Optional[MoEConfig] = None):
     """Router probabilities ``(G, gs, E)`` -> (gates ``(G, gs, K)``,
-    renormalised and zeroed where dropped, expert ids ``(G, gs, K)``,
-    slots ``(G, gs, K)``, kept ``(G, gs, K)`` bool)."""
+    renormalised (unless ``mo.norm_topk`` is off), times
+    ``mo.routed_scaling``, and zeroed where dropped, expert ids ``(G, gs,
+    K)``, slots ``(G, gs, K)``, kept ``(G, gs, K)`` bool).  ``mo``'s
+    ``n_group`` > 1 takes the top-k within the token's best groups."""
     G, gs, E = probs.shape
+    if mo is not None and mo.n_group > 1:
+        probs = group_limited(probs, mo.n_group, mo.topk_group)
     gate_vals, idx = torch.topk(probs, K, dim=-1)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    if mo is None or mo.norm_topk:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    if mo is not None and mo.routed_scaling != 1.0:
+        gate_vals = gate_vals * mo.routed_scaling
     flat = F.one_hot(idx, E).reshape(G, gs * K, E)
     pos_in_e = flat.cumsum(dim=1) - flat
     pos = (flat * pos_in_e).sum(dim=-1).reshape(G, gs, K)
@@ -115,8 +146,11 @@ _EP = {"pod": 0, "data": 0, "model": 1}
 _TOKENS = {"pod": 0, "data": 0}
 
 
-def apply_moe(p, x: torch.Tensor, mo: MoEConfig, act: str):
-    """x: (B, S, d) -> (y, aux_loss)."""
+def apply_moe(p, x: torch.Tensor, mo: MoEConfig, act: str,
+              counts: Optional[torch.Tensor] = None):
+    """x: (B, S, d) -> (y, aux_loss).  ``counts`` (int64 (2,) on the
+    device, a share's prefill) gains the choices that land on the held
+    experts and those of them kept within capacity."""
     B, S, d = x.shape
     T = B * S
     gs = _group_size(T)
@@ -126,15 +160,28 @@ def apply_moe(p, x: torch.Tensor, mo: MoEConfig, act: str):
     fn = act_fn(act)
 
     xg = x.reshape(G, gs, d)
-    probs = torch.softmax(_layout(xg @ p["router"], _TOKENS).float(),
-                          dim=-1)                             # (G, gs, E)
-    gate_vals, idx, pos, keep = route(probs, K, C)
+    with profile_range("moe.route"):
+        probs = torch.softmax(_layout(xg @ p["router"], _TOKENS).float(),
+                              dim=-1)                         # (G, gs, E)
+        gate_vals, idx, pos, keep = route(probs, K, C, mo)
+    # the dispatched experts' ids and count: a share's local ids, where an
+    # absent expert's choice goes to column Eh, which is cut off
+    disp, Eh = idx, E
+    if mo.experts_held:
+        Eh = mo.experts_held
+        local = idx - mo.held_first
+        held = (local >= 0) & (local < Eh)
+        disp = torch.where(held, local, Eh)
+        if counts is not None:
+            counts += torch.stack([held.sum(), (held & keep).sum()])
 
-    # (G, gs, E, C) dispatch/combine, one choice k at a time, summed from
+    # (G, gs, Eh, C) dispatch/combine, one choice k at a time, summed from
     # the first (no zeros to start from: a DTensor's new_zeros would be
     # replicated at the global size)
     for k in range(K):
-        oe = F.one_hot(idx[..., k], E).to(x.dtype)           # (G, gs, E)
+        oe = F.one_hot(disp[..., k], Eh + 1)[..., :Eh] if mo.experts_held \
+            else F.one_hot(disp[..., k], E)
+        oe = oe.to(x.dtype)                                  # (G, gs, Eh)
         oc = F.one_hot(torch.where(keep[..., k], pos[..., k], C),
                        C + 1).to(x.dtype)[..., :-1]           # (G, gs, C)
         d_k = oe[..., None] * oc[..., None, :]
@@ -160,7 +207,7 @@ def apply_moe(p, x: torch.Tensor, mo: MoEConfig, act: str):
         hs = fn(x @ sh["w_gate"]) * (x @ sh["w_up"])
         y = y + hs @ sh["w_down"]
 
-    # load-balance aux loss (Switch style)
+    # load-balance aux loss (Switch style), over every expert routed to
     me = probs.reshape(T, E).mean(dim=0)
     frac = F.one_hot(idx[..., 0].reshape(T), E).float().mean(dim=0)
     aux = mo.router_aux_weight * E * torch.sum(me * frac)

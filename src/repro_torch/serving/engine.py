@@ -37,7 +37,11 @@ unpadded prompts), ``prefill_tokens`` (B x S, padding included),
 ``requested_tokens`` (the sum of ``max_new_tokens``) and
 ``decoded_tokens`` (B x the longest ``max_new_tokens``: every row decodes
 to the longest), ``graph_steps`` (decode steps a CUDA graph's replay
-served) and ``graph_captures`` (graphs captured in this call).  Given an
+served) and ``graph_captures`` (graphs captured in this call); for a
+model that holds a share of its experts (``MoEConfig.experts_held``)
+also ``moe_held_choices`` and ``moe_kept_choices`` (the prefill's routed
+choices that land on the held experts, and those of them kept within
+capacity: ``Model.moe_counts``, read once after the readback).  Given an
 ``obs`` handle, a sampled batch's spans also go to ``obs.tracer`` as one
 trace, and the counts and times add to the ``engine.*`` counters of
 ``obs.metrics``.
@@ -82,6 +86,8 @@ def pin_float32() -> None:
 COUNTERS = ("prompt_tokens", "prefill_tokens", "requested_tokens",
             "decoded_tokens", "pad_s", "sample_s", "decode_host_s",
             "readback_s", "graph_steps", "graph_captures")
+# ditto, of a model that holds a share of its experts
+SHARE_COUNTERS = ("moe_held_choices", "moe_kept_choices")
 
 
 class ServeEngine:
@@ -201,8 +207,11 @@ class ServeEngine:
             "graph_steps": kept.replays - replays,
             "graph_captures": kept.captures - captures,
         }
+        counts = self.model.moe_counts
+        if counts is not None:
+            self.last_stats.update(zip(SHARE_COUNTERS, counts.tolist()))
         if self.obs is not None:
-            for k in COUNTERS:
+            for k in COUNTERS + SHARE_COUNTERS * (counts is not None):
                 self.obs.metrics.counter("engine." + k).inc(
                     self.last_stats[k])
         dt = t2 - t0

@@ -214,6 +214,91 @@ def test_flash_kernel_matches_plain_at_the_serving_shape(dev):
     flash_case(dev, 1024, 32, 32, 80, True, 0, seed=7)
 
 
+def mla_case(dev, B, S, H, dk, dv, causal, scale, seed, rows=False):
+    """The MLA instance against the plain version; where ``rows``, batch
+    row by batch row (the plain scores of (16, 2048, 128) would take 34
+    GB) and in float64 (in float32 the plain version's own error over
+    2048 keys is of the tolerance's size)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    rng = np.random.default_rng(seed)
+    q, k, _ = qkv(rng, B, S, H, H, dk, dev)
+    v = qkv(rng, B, S, H, H, dv, dev)[2]
+    before = ops.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1 and got.shape == (B, S, H, dv)
+    assert torch.isfinite(got).all()
+    for r in (range(B) if rows else [slice(None)]):
+        sl = slice(r, r + 1) if rows else r
+        args = (q[sl], k[sl], v[sl])
+        want = flash_attention_torch(*(t.double() if rows else t
+                                       for t in args), causal=causal,
+                                     scale=scale)
+        assert float((got[sl] - want).abs().max()) <= FLASH_ATOL
+        del want
+
+
+@pytest.mark.parametrize("B,S,H,dk,dv,causal,scale", [
+    (2, 129, 4, 96, 64, True, 0.13), (2, 257, 4, 96, 64, False, None),
+    (1, 1, 4, 96, 64, True, 0.2), (2, 300, 8, 192, 128, True, 0.1147),
+    (1, 130, 16, 192, 128, False, 0.09)])
+def test_flash_mla_kernel_matches_plain(dev, B, S, H, dk, dv, causal, scale):
+    """The MLA instances, (192, 128) and the reduced archs' (96, 64), at a
+    given scale (default dk^-0.5), across tile edges."""
+    mla_case(dev, B, S, H, dk, dv, causal, scale, seed=S + dk)
+
+
+def test_flash_mla_kernel_at_the_served_shape(dev):
+    """DeepSeek-V2's prefill attention at the benchmark's batch: (16, 2048,
+    128 heads), q.k 192, v 128, MLA's YaRN scale."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.attention import _mla_scale
+    mla_case(dev, 16, 2048, 128, 192, 128, True,
+             _mla_scale(get_arch("deepseek-v2-ep8").mla), seed=16, rows=True)
+
+
+# sha256 of the GQA kernel's output at fixed inputs, recorded from the
+# kernel before its tile moved into csrc/flash_tile.cuh (flash_mla.cu's
+# instances share it): the GQA instances' output stays bit for bit
+GQA_DIGESTS = {
+    (8, 1024, 16, 16, 128): "f5f73e6cfd662e4d2735224297bc4ccb676652e1367271ca35091c0b89f25dd4",
+    (8, 1024, 32, 32, 80): "4e3743787911c51fe00f56ea5ff8fc54b0fc783d0360c4a6b66db94f56b2959a",
+}
+
+
+@pytest.mark.parametrize("shape", sorted(GQA_DIGESTS))
+def test_gqa_flash_output_and_kernel_names_unchanged(dev, shape):
+    """The olmoe (hd 128) and zamba2 (hd 80) shapes, causal: the output's
+    bytes as recorded, one launch of ``flash_attention_tc<hd>``; the MLA
+    instance is ``flash_mla_tc``, apart from it."""
+    import hashlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import ops
+    B, S, H, K, hd = shape
+    g = torch.Generator().manual_seed(hd * 1000 + S)
+    q, k, v = (torch.randn(B, S, n, hd, generator=g).to(dev)
+               for n in (H, K, K))
+    z = torch.zeros(1, 64, 4, 96, device=dev)
+    for _ in range(3):      # the tracer can drop a short window's records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = ops.flash_attention(q, k, v, causal=True)
+            ops.flash_attention(z, z, z[..., :64].contiguous(), scale=0.1)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        gqa = [n for n in names if "flash_attention_tc<" in n]
+        mla = [n for n in names if "flash_mla_tc<" in n]
+        if gqa and mla:
+            break
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    assert digest == GQA_DIGESTS[shape]
+    assert len(gqa) == 1 and f"flash_attention_tc<{hd}>" in gqa[0]
+    assert len(mla) == 1 and "flash_attention" not in mla[0]
+
+
 def ssd_inputs(rng, B, S, nh, hd, N, dev, init):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -1187,6 +1272,62 @@ def test_ssd_op_on_cuda_dtensors_equals_the_kernel(one_rank_mesh, spec):
         torch.testing.assert_close(_full(g), w, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("spec", [("data", None, None, None),
+                                  (None, None, "model", None)])
+def test_flash_mla_op_on_cuda_dtensors_equals_the_kernel(one_rank_mesh,
+                                                         spec):
+    """MLA's call on batch- or head-sharded q, k, v (q.k 96, v 64, a scale
+    of its own): ``repro_torch::flash_mla`` launches the MLA kernel once
+    on the local shard, output equal to the plain tensors' call,
+    gradients within 1e-6 of theirs."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.sharding import P, distribute
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for shape in ((2, 128, 8, 96), (2, 128, 8, 96),
+                             (2, 128, 8, 64)))
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = fa.flash_attention(*plain, causal=True, scale=0.13)
+    want_g = _weighted_grads(want, plain, 1)
+    sharded = [distribute(t, one_rank_mesh, P(*spec)).requires_grad_()
+               for t in (q, k, v)]
+    before, mla = fa.LAUNCHES, fa.MLA_LAUNCHES
+    got = fa.flash_attention(*sharded, causal=True, scale=0.13)
+    assert (fa.LAUNCHES, fa.MLA_LAUNCHES) == (before + 1, mla + 1)
+    assert got.placements == sharded[0].placements
+    assert torch.equal(_full(got), want)
+    got_g = _weighted_grads(got, sharded, 1)
+    assert fa.LAUNCHES == before + 1          # the backward launches nothing
+    for g, w in zip(got_g, want_g):
+        torch.testing.assert_close(_full(g), w, rtol=1e-6, atol=1e-6)
+
+
+def test_sharded_mla_prefill_runs_the_kernel(one_rank_mesh):
+    """Reduced deepseek-v2-ep8, plain and ``shard_model`` (tp) from one
+    seed on the one-rank mesh: each prefill launches the MLA kernel once a
+    layer (no einsum scores) and the logits agree."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    dev = torch.device("cuda", 0)
+    cfg = get_arch("deepseek-v2-ep8").reduced()
+    plain = Model(cfg, device=dev, seed=0)
+    sharded = shd.shard_model(Model(cfg, device=dev, seed=0), one_rank_mesh,
+                              cfg, "tp")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64))).to(dev)
+    logits = []
+    for model in (plain, sharded):
+        fa.reset_launches()
+        logits.append(_full(model.prefill({"tokens": tokens}, 100)[0]))
+        assert fa.MLA_LAUNCHES == fa.LAUNCHES == cfg.num_layers
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-6, atol=1e-6)
+
+
 def test_custom_ops_fake_implementations_on_cuda_launch_nothing(dev):
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1212,7 +1353,7 @@ def test_custom_ops_fake_implementations_on_cuda_launch_nothing(dev):
 
 GRAPH_ARCHS = ["qwen1.5-0.5b", "olmoe-1b-7b", "deepseek-v2-236b",
                "mamba2-370m", "zamba2-2.7b", "llama-3.2-vision-11b",
-               "seamless-m4t-medium"]
+               "seamless-m4t-medium", "deepseek-v2-ep8"]
 GRAPH_LENS, GRAPH_MAX_LEN = (64, 20, 41), 100     # the reduced ring wraps
 GRAPH_SHORT = (30, 9, 17)           # a later batch of the same B, shorter
 

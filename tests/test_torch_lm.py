@@ -30,6 +30,7 @@ from repro.models.model import _ring_place as jax_ring_place  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServeEngine as JServeEngine  # noqa: E402
+from config_parity import assert_same_config  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
@@ -81,12 +82,12 @@ def test_config_copy_matches_the_reference():
         jc, pc = jax_get_arch(ARCH), get_arch(ARCH)
         if not full:
             jc, pc = jc.reduced(), pc.reduced()
-        assert dataclasses.asdict(jc) == dataclasses.asdict(pc)
+        assert_same_config(jc, pc)
         assert jc.param_count() == pc.param_count()
     assert get_arch(ARCH).param_count() == 2_422_347_200      # 2.42 B
     # every arch is ported: the vlm's config is the reference's
-    assert dataclasses.asdict(get_arch("llama-3.2-vision-11b")) == \
-        dataclasses.asdict(jax_get_arch("llama-3.2-vision-11b"))
+    assert_same_config(jax_get_arch("llama-3.2-vision-11b"),
+                       get_arch("llama-3.2-vision-11b"))
     with pytest.raises(KeyError):
         get_arch("gpt-5")
     with pytest.raises(ValueError, match="unknown model family"):

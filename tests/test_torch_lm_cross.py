@@ -37,6 +37,7 @@ from repro.data import pipeline as jpipe  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServeEngine as JServeEngine  # noqa: E402
+from config_parity import assert_same_config  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
@@ -136,7 +137,7 @@ def test_config_copy_matches_the_reference(arch):
         jc, pc = jbase.get_arch(arch), base.get_arch(arch)
         if not full:
             jc, pc = jc.reduced(), pc.reduced()
-        assert dataclasses.asdict(jc) == dataclasses.asdict(pc)
+        assert_same_config(jc, pc)
         assert jc.param_count() == pc.param_count()
 
 
@@ -150,8 +151,7 @@ def test_shapes_and_arch_registry_match_the_reference():
     ours, theirs = base.all_archs(), jbase.all_archs()
     assert list(ours) == list(theirs) == base.ARCH_IDS
     for arch in base.ARCH_IDS:
-        assert dataclasses.asdict(ours[arch]) == \
-            dataclasses.asdict(theirs[arch])
+        assert_same_config(theirs[arch], ours[arch])
         for pc, jc in ((ours[arch], theirs[arch]),
                        (ours[arch].reduced(), theirs[arch].reduced())):
             assert pc.active_param_count() == jc.active_param_count()

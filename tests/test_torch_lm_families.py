@@ -31,6 +31,7 @@ from repro.configs.base import get_arch as jax_get_arch  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServeEngine as JServeEngine  # noqa: E402
+from config_parity import assert_same_config  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
@@ -75,7 +76,7 @@ def test_config_copy_matches_the_reference(arch):
         jc, pc = jax_get_arch(arch), get_arch(arch)
         if not full:
             jc, pc = jc.reduced(), pc.reduced()
-        assert dataclasses.asdict(jc) == dataclasses.asdict(pc)
+        assert_same_config(jc, pc)
         assert jc.param_count() == pc.param_count()
 
 

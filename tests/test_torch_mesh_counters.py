@@ -171,6 +171,29 @@ def test_flash_op_runs_on_local_shards(mesh, layout, want):
                                            lq[3], True, 0)[0]
 
 
+@pytest.mark.parametrize("layout,want", [
+    (P("data", None, "model", None), "(Shard(dim=0), Shard(dim=2))"),
+    (P("data", None, None, None), "(Shard(dim=0), Replicate())"),
+    (P(None, None, "model", None), "(Replicate(), Shard(dim=2))")])
+def test_flash_mla_op_runs_on_local_shards(mesh, layout, want):
+    """MLA's call (q.k over 192 dims, v of 128, a scale of its own) on
+    sharded q, k, v goes through ``repro_torch::flash_mla``: each rank's
+    shard, no collective, v's dim out, the local launch's FLOPs."""
+    with FakeTensorMode():
+        q = distribute(torch.empty(32, 256, 32, 192), mesh, layout)
+        v = distribute(torch.empty(32, 256, 32, 128), mesh, layout)
+        out = []
+        cost = op_cost(lambda: out.append(fa.flash_attention(q, q, v,
+                                                             scale=0.11)))
+    assert str(out[0].placements) == want
+    assert tuple(out[0].shape) == (32, 256, 32, 128)
+    lq = q.to_local().shape
+    assert tuple(out[0].to_local().shape) == tuple(lq[:3]) + (128,)
+    assert cost["collectives"] == {"total": 0}
+    assert cost["flops"] == fa.launch_cost(lq[0], lq[1], lq[2], lq[2],
+                                           192, True, 0, 128)[0]
+
+
 def test_flash_op_never_cuts_a_gqa_group_quietly(mesh):
     """K = 8 key/value heads cannot split over 16 ranks: the rule offers
     no head layout, so DTensor gathers q's heads, a collective the count

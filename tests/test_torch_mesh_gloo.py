@@ -17,6 +17,10 @@ tolerances.  One rank, mesh (1, 1): the counterpart of
 the reference's ``test_pjit_forward_on_host_mesh``, whose embedding
 lookup fails under JAX 0.9's explicit mesh axes: here the lookup on the
 vocab-sharded ``embed`` gives finite logits equal to the unsharded ones.
+Two ranks, mesh (1, 2) ``tp``: reduced deepseek-v2-ep8 with MLA's card
+route on a stand-in launch (the plain version written into the kernel's
+output): each layer's MLA reaches the launch once a rank, on half the
+heads, and the prefill logits equal the unsharded einsum's.
 """
 import json
 import os
@@ -99,3 +103,14 @@ def test_forward_on_host_mesh_with_a_vocab_sharded_embedding(results):
     assert got["shape"] == [2, 16, 512]
     assert got["finite"]
     assert got["logits"] <= SERVE_TOL
+
+
+def test_mlas_card_route_on_sharded_heads_equals_the_unsharded_port(
+        results):
+    got = case(results, "tp_dsv2_mla_route")
+    L, H = got["num_layers"], got["num_heads"]
+    assert got["mla_launches"] == L
+    # q and k (nope + rope) and v, each rank's half of the heads
+    assert got["local_qkv"] == [[[2, 64, H // 2, 96], [2, 64, H // 2, 96],
+                                 [2, 64, H // 2, 64]]] * L
+    assert got["prefill_logits"] <= SERVE_TOL

@@ -5,7 +5,8 @@
 
 starts two ranks (``torch.multiprocessing.spawn``, gloo on a free
 localhost port) and runs the two-rank cases, then four ranks for the
-(2, 2) cases, then one rank for the one-rank case; rank 0 writes each
+(2, 2) cases, then one rank for the one-rank case, then two ranks for
+the MLA card route's case; rank 0 writes each
 case's numbers to OUT.json.  Every sharded model is held to the
 unsharded port from the same seed.
 """
@@ -123,6 +124,44 @@ def train_case(arch, mesh_shape):
                 for m in state.opt.mu)}
 
 
+def mla_card_route_case(mesh_shape):
+    """Reduced deepseek-v2-ep8 sharded (tp) with MLA's card route taken
+    on the CPU: every tensor counts as on the card and the MLA launch
+    writes the plain version's result into the kernel's output (a
+    stand-in for the kernel), so each layer's MLA goes through the custom
+    op on each rank's head shard; held to the unsharded port's einsum."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models.model import Model
+    get_arch, shd, make_host_mesh = _port()
+    cfg = get_arch("deepseek-v2-ep8").reduced()
+    mesh = make_host_mesh(model=mesh_shape[1], data=mesh_shape[0],
+                          device_type="cpu")
+    ref = Model(cfg, device="cpu", seed=0)
+    model = shd.shard_model(Model(cfg, device="cpu", seed=0), mesh, cfg,
+                            "tp")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    want, _ = ref.prefill({"tokens": tokens}, 100)
+    local = []
+
+    def kernel(q, k, v, out, causal, scale):
+        local.append([list(t.shape) for t in (q, k, v)])
+        out.copy_(flash_attention_torch(q, k, v, causal=causal,
+                                        scale=scale))
+    kept = fa._on_card, fa._mla_kernel
+    fa._on_card, fa._mla_kernel = (lambda t: True), kernel
+    fa.reset_launches()
+    try:
+        got, _ = model.prefill({"tokens": tokens}, 100)
+        launches = fa.MLA_LAUNCHES
+    finally:
+        fa._on_card, fa._mla_kernel = kept
+    return {"prefill_logits": _diff(got, want), "mla_launches": launches,
+            "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
+            "local_qkv": local}
+
+
 def host_mesh_case():
     """The counterpart of the reference's test_pjit_forward_on_host_mesh:
     the reduced qwen's forward at mesh (1, 1), embed vocab-sharded."""
@@ -182,6 +221,8 @@ def main(out: str) -> int:
     results = _spawn(2, _cases(SERVE, TRAIN), out)
     results.update(_spawn(4, _cases(SERVE_2X2, TRAIN_2X2), out))
     results.update(_spawn(1, [("host_mesh", host_mesh_case, ())], out))
+    results.update(_spawn(2, [("tp_dsv2_mla_route", mla_card_route_case,
+                               ((1, 2),))], out))
     Path(out).write_text(json.dumps(results))
     return 0
 

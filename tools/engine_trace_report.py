@@ -18,7 +18,16 @@ profiled batch it prints, as one JSON line:
   idle_by_range_s         the decode phase's device-idle time, each gap
                           split by the innermost of the program's ranges
                           that contains it (``engine.*``, ``model.*``,
+                          ``mla.*``, ``moe.route``,
                           ``moe_dispatch_combine``; ``outside``: none)
+  prefill_busy_s,         the prefill phase's device-busy time (its
+  prefill_busy_by_range_s kernels' union, from the batch's start to its
+                          first decode step), split by the innermost of
+                          the same ranges as the profiler projects them
+                          onto the device's timeline (a range's GPU
+                          annotation spans the kernels it launched):
+                          ``mla.project`` and ``mla.attend`` give MLA's
+                          share of the prefill
   offset_ns               each engine span's mirrored range start less
                           its ``ts_ns`` (median, quartiles, min, max)
 """
@@ -35,7 +44,8 @@ sys.path.insert(0, str(ROOT))
 
 RANGES = ("engine.serve", "engine.pad", "model.prefill", "engine.sample",
           "model.decode_step", "engine.readback", "model.attention",
-          "model.ffn", "model.mamba", "model.unembed", "moe_dispatch_combine")
+          "model.ffn", "model.mamba", "model.unembed", "mla.project",
+          "mla.attend", "moe.route", "moe_dispatch_combine")
 ENGINE = RANGES[:6]
 
 
@@ -53,6 +63,39 @@ def offsets(spans, host, lo, hi):
                                f"{len(got)} ranges in the trace")
         out += [r - s for r, s in zip(got, starts)]
     return out
+
+
+def device_ranges(prof):
+    """The program's ranges as the profiler projects them onto the device's
+    timeline: (start, end, name) in ns, one a GPU annotation."""
+    from torch.autograd import DeviceType
+    from portbench import trace as tl
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.name() in RANGES:
+            start = tl._ns(e, "start")
+            out.append((start, start + tl._ns(e, "duration"), e.name()))
+    return sorted(out)
+
+
+def profile_one(program, engine, traffic, j: int, on_card: bool):
+    """``harness.profile_batches`` of batch ``j`` alone -> (trace, the
+    device's ranges, seconds to read the trace)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from portbench import harness, trace as tl
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    with harness.spans(engine.model), profile(activities=acts) as prof:
+        with torch.profiler.record_function(tl.BATCH_SPAN):
+            rec = harness.serve_batch(program, engine, traffic.batch(j))
+    t0 = time.perf_counter()
+    tr = tl.from_profiler(prof)
+    tr.batches[0].update({k: rec[k] for k in ("B", "S", "prompt_lens",
+                                              "out_lens", "stats")})
+    return tr, device_ranges(prof), time.perf_counter() - t0
 
 
 def summary(values):
@@ -91,12 +134,16 @@ def report(cell, seed: int, batches: int, device: str = "cuda", arch=None):
                     f"name, power limit: {harness.power_limit()}")
     for j in range(batches):
         plain = harness.serve_batch(program, engine, traffic.batch(2 * j))
-        tr, read_s = harness.profile_batches(program, engine, traffic,
-                                             2 * j + 1, 1, on_card)
+        tr, dev_ranges, read_s = profile_one(program, engine, traffic,
+                                             2 * j + 1, on_card)
         b = tr.batches[0]
         lo, hi = b["decode"]
-        gaps = tl.gaps(tl.union(tr.kernels), lo, hi)
+        merged = tl.union(tr.kernels)
+        gaps = tl.gaps(merged, lo, hi)
         idle = sp.by_innermost(gaps, tr.host, RANGES)
+        busy = [(max(a, b["start"]), min(e, lo)) for a, e in merged
+                if e > b["start"] and a < lo]
+        prefill = sp.by_innermost(busy, dev_ranges, RANGES)
         yield {
             "workload": cell["name"], "seed": seed, "batch": 2 * j + 1,
             "wall_s": (b["end"] - b["start"]) / 1e9,
@@ -107,6 +154,10 @@ def report(cell, seed: int, batches: int, device: str = "cuda", arch=None):
             "idle_s": sum(e - s for s, e in gaps) / 1e9,
             "idle_by_range_s": {k: v / 1e9 for k, v in
                                 sorted(idle.items(), key=lambda kv: -kv[1])},
+            "prefill_busy_s": sum(e - a for a, e in busy) / 1e9,
+            "prefill_busy_by_range_s": {
+                k: v / 1e9 for k, v in sorted(prefill.items(),
+                                              key=lambda kv: -kv[1])},
             "offset_ns": summary(offsets(getattr(engine, "last_spans", []),
                                          tr.host, b["start"], b["end"])),
             "trace_read_s": read_s,
