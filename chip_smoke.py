@@ -1176,6 +1176,105 @@ def flash_mla_at_benchmark_shape(dev) -> dict:
     return t
 
 
+# the decode attention of the four GQA cells (portbench/workloads): (B, W,
+# H, K, hd, pos timed).  The decode cells: B 48, W 640 (prompts up to 512 +
+# 128 out), timed at the mean position of a batch's 127 steps (512..638);
+# the long-prompt cells: B 16, W 2064 (2048 + 16 out), their 15 steps at
+# 2048..2062.  olmoe's 16 heads of 128, zamba2's shared block's 32 of 80.
+DECODE_BENCH_SHAPES = {
+    "olmoe-decode": (48, 640, 16, 16, 128, 575),
+    "zamba2-decode": (48, 640, 32, 32, 80, 575),
+    "olmoe-longprompt": (16, 2064, 16, 16, 128, 2055),
+    "zamba2-longprompt": (16, 2064, 32, 32, 80, 2055)}
+DECODE_ATOL = 1e-5          # f32 both sides, the keys summed in another order
+DECODE_WRONG_SCALE = 1.01   # a kernel whose scale is 1% off must miss it
+
+
+def decode_attention_at_benchmark_shapes(dev) -> dict:
+    """The decode-attention kernel at each of DECODE_BENCH_SHAPES, per
+    cell: one call through the wrapper at the middle slot, the last slot
+    and the timed position, each with the counter zeroed just before (one
+    launch), held to the plain version (``sdpa`` over the whole cache with
+    the mask) within DECODE_ATOL, a 1%-off scale required to miss it; the
+    split plan, whose combine kernel must show in the profile where it
+    splits W; then the launch at the timed position timed by CUDA events
+    and by the profiler beside the plain version and the bound: the larger
+    of q, K and V rows 0..pos and the output at the memory rate and
+    ``launch_cost``'s flops at the CUDA-core rate (the kernel's route),
+    which ``decode_attn_roofline`` divides by too."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_torch
+
+    out = {}
+    for cell, (B, W, H, K, hd, pos) in DECODE_BENCH_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(pos + hd)
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev)
+        k, v = (torch.randn(B, W, K, hd, generator=gen, device=dev)
+                for _ in range(2))
+        errs, wrongs = {}, {}
+        for at in (W // 2, W - 1, pos):
+            ops.reset_launches()
+            got = ops.decode_attention(q, k, v, at)
+            torch.cuda.synchronize()
+            if ops.DECODE_LAUNCHES != 1:
+                raise AssertionError(f"decode_attention at {cell} pos {at}: "
+                                     f"{ops.DECODE_LAUNCHES} launches")
+            want = decode_attention_torch(q, k, v, at)
+            errs[at] = float((got - want).abs().max())
+            wrongs[at] = float((decode_attention_torch(
+                q * DECODE_WRONG_SCALE, k, v, at) - want).abs().max())
+            if not errs[at] <= DECODE_ATOL < wrongs[at]:
+                raise AssertionError(
+                    f"decode_attention off by {errs[at]} at {cell} "
+                    f"{(B, W, H, K, hd)} pos {at} (tolerance {DECODE_ATOL}; "
+                    f"a {DECODE_WRONG_SCALE}x scale gives {wrongs[at]})")
+        splits, chunk = ops.split_plan(B, K, W, ops._sm_count(dev))
+        part = (q.new_empty(B * K * splits * (H // K) * (hd + 2))
+                if splits > 1 else None)
+        n = B * K * splits * (H // K) * hd
+
+        def kernel():
+            ops._kernel(q, k, v, got, None if part is None else part[:n],
+                        None if part is None else part[n:], pos, splits,
+                        chunk)
+
+        def plain():
+            decode_attention_torch(q, k, v, pos)
+        ms = cuda_ms(kernel, reps=20, inner=20, warmup=5)
+        plain_ms = cuda_ms(plain, reps=10, inner=5, warmup=2)
+        device_ms, per_call, by_name = kernel_device_ms_of(
+            kernel, "decode_attention")
+        if per_call != (2 if splits > 1 else 1):
+            raise AssertionError(
+                f"decode_attention at {cell}: {per_call} CUDA kernels a "
+                f"call ({by_name}), {splits} splits planned")
+        plain_device_ms = kernel_device_ms_of(plain, "", calls=5)[0]
+        flops, nbytes = ops.launch_cost(B, H, K, hd, pos, W)
+        hw = peaks()
+        bytes_ms = nbytes / hw.hbm_bw * 1e3
+        ops_ms = flops / hw.peak_flops * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        out[cell] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "cuda_launches_per_call": per_call, "device_ms_by_kernel":
+            by_name, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_f32_cuda_core_ms": bound_ms, "flops": flops,
+            "bytes": nbytes, "roofline_pct": 100.0 * bound_ms / (
+                device_ms if device_ms else ms),
+            "timed_shape": [B, W, H, K, hd, pos], "splits": splits,
+            "chunk": chunk, "max_abs_err_by_pos": errs,
+            "wrong_scale_err_by_pos": wrongs,
+            "serving_max_abs_err": max(errs.values()),
+            "wrong_scale_err": min(wrongs.values())}
+        del q, k, v, got, want, part
+        torch.cuda.empty_cache()
+    return out
+
+
 def ssd_at_serving_shape(run: dict, dev) -> dict:
     """The SSD kernel on the inputs of the first Mamba block's scan of the
     served prefill: against its plain version (y and final state), then
@@ -1382,6 +1481,18 @@ def mla_per_prefill(cfg) -> int:
     return cfg.num_layers if cfg.mla is not None else 0
 
 
+def decode_per_step(cfg) -> int:
+    """Decode-attention calls of one decode step: one per GQA
+    self-attention layer (the vlm's self blocks, the audio arch's decoder
+    blocks, the hybrid's shared block at each of its applications), none
+    for MLA or Mamba-2 alone."""
+    if cfg.family == "audio":
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return flash_per_prefill(cfg)
+
+
 def launch_counts(fa, sd) -> dict:
     """The launch counters by kernel: the GQA flash kernel, its MLA
     instance (``flash_mla_tc``, counted apart) and the SSD scan."""
@@ -1407,10 +1518,14 @@ def serve_family(arch: str, dev) -> dict:
     takes the same prompts with the engine's zero inputs, and the two
     prefills' logits must differ by more than LIVE_MIN (the vlm's cross
     gates set to LIVE_GATE first).  Launch counters zeroed just before,
-    read just after; every step's logits finite; the model freed by the
-    caller."""
+    read just after; the serve runs under the profiler (device activity
+    only), which counts the decode-attention kernels it runs, one a
+    GQA layer and step, graph replays included; every step's logits
+    finite; the model freed by the caller."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd_scan import ops as sd
     from repro_torch.serving.engine import ServeEngine
@@ -1442,13 +1557,18 @@ def serve_family(arch: str, dev) -> dict:
     finite.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    # the measured serve under the profiler (device activity only), which
+    # counts the decode kernels it runs, graph replays included
     with Capture(fa, "flash_attention") as cap_fa, \
-            Capture(sd, "ssd_scan") as cap_sd:
+            Capture(sd, "ssd_scan") as cap_sd, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         fa.reset_launches()
         sd.reset_launches()
+        da.reset_launches()
         outs = engine.serve(reqs, seed=0, extra_inputs=extra)
         torch.cuda.synchronize()
         launches = launch_counts(fa, sd)
+        decode_launches = da.DECODE_LAUNCHES
     engine._sample = sample
     st = dict(engine.last_stats)
     want = {"flash_attention": flash_per_prefill(cfg),
@@ -1457,6 +1577,21 @@ def serve_family(arch: str, dev) -> dict:
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want} "
                              f"for one prefill")
+    # every decode step of the serve runs the decode kernel once a layer,
+    # a replayed step too; Python launches it in the steps that ran
+    # eagerly and in a capture (none where the warm-up's graph replays)
+    decode_kernels = sum(e.count for e in _device_events(prof.key_averages())
+                         if "decode_attention_split" in e.key)
+    want_kernels = decode_per_step(cfg) * st["decode_steps"]
+    want_decode = decode_per_step(cfg) * (
+        st["decode_steps"] - st["graph_steps"] + st["graph_captures"])
+    if (decode_kernels, decode_launches) != (want_kernels, want_decode):
+        raise AssertionError(
+            f"{arch}: the serve ran {decode_kernels} decode_attention "
+            f"kernels and launched {decode_launches} from Python, expected "
+            f"{want_kernels} and {want_decode} ({st['decode_steps']} steps, "
+            f"{st['graph_steps']} replayed, {st['graph_captures']} "
+            f"captures)")
     toks = np.stack([o.tokens for o in outs])
     if not all(finite) or len(finite) != 16 or toks.shape != (8, 16) or \
             toks.min() < 0 or toks.max() >= cfg.vocab_size:
@@ -1475,6 +1610,10 @@ def serve_family(arch: str, dev) -> dict:
            "prompt_len": S, "prefill_ms": st["prefill_s"] * 1e3,
            "decode_tok_s": st["decode_steps"] * B / st["decode_s"],
            "launches_per_prefill": launches,
+           "decode_attention_kernels": decode_kernels,
+           "decode_attention_launches": decode_launches,
+           "decode_steps": st["decode_steps"],
+           "graph_steps": st["graph_steps"],
            "card_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
            "reduced": reduced or "none (full depth)",
            "tokens_req0": toks[0].tolist()}
@@ -1697,6 +1836,8 @@ def families_phase(dev) -> dict:
     launches = {k: {arch: r["launches_per_prefill"][k]
                     for arch, r in runs.items()}
                 for k in ("flash_attention", "flash_mla", "ssd_scan")}
+    launches["decode_attention"] = {
+        arch: r["decode_attention_kernels"] for arch, r in runs.items()}
     log(f"[lm] phase 10 in {time.perf_counter() - t_phase:.1f}s")
     return {"runs": runs, "timed": timed, "breakdown": breakdown,
             "layers": layers, "launches": launches, "flash_errs": flash_errs,
@@ -4405,12 +4546,13 @@ def main() -> int:
 
     # 1. build
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.iou_matrix import ops
     from repro_torch.kernels.ssd_scan import ops as sd_ops
     t0 = time.perf_counter()
     libs = build.build_all([ops.SOURCE, fa_ops.SOURCE, fa_ops.MLA_SOURCE,
-                            sd_ops.SOURCE])
+                            sd_ops.SOURCE, da_ops.SOURCE])
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f}s")
     for src, lib in libs.items():
         report = lib.with_suffix(".log")
@@ -4486,6 +4628,21 @@ def main() -> int:
         f"other flops, {mla_t['bytes']} bytes), least "
         f"{mla_t['least_ms']:.4f} ms (flash_mla_roofline's: every flop at "
         f"the TF32 rate)")
+    dec_by_cell = decode_attention_at_benchmark_shapes(dev)
+    for cell, t in dec_by_cell.items():
+        log(f"[kernels] decode_attention at the {cell} shape "
+            f"{t['timed_shape']} (B, W, H, K, hd, pos): splits "
+            f"{t['splits']} of {t['chunk']} rows, max_abs_err by pos "
+            f"{json.dumps(t['max_abs_err_by_pos'])} (a {DECODE_WRONG_SCALE}x"
+            f" scale: {json.dumps(t['wrong_scale_err_by_pos'])}), kernel "
+            f"{t['ms']:.4f} ms (device {t['device_ms']} ms over "
+            f"{t['cuda_launches_per_call']} CUDA kernels per call: "
+            f"{json.dumps(t['device_ms_by_kernel'])}), plain "
+            f"{t['plain_ms']:.4f} ms (device {t['plain_device_ms']} ms), "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} "
+            f"flops at the CUDA-core rate, {t['bytes']} bytes), "
+            f"{t['roofline_pct']:.1f}% of it")
+    dec_t = dec_by_cell["olmoe-decode"]
     cmp = lm_vs_cpu(dev)
     log(f"[lm] phases 4-5 in {time.perf_counter() - t0:.1f}s")
 
@@ -4657,6 +4814,31 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "least_ms",
             "library_ms", "device_ms", "timed_shape",
             "cuda_launches_per_call", "bound_f32_cuda_core_ms")},
+    })
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "none: the reference's one-token decode is plain jnp "
+                    "(src/repro/models/attention.py attention_decode)",
+        # the kernels phase 10's served decodes ran (graph replays
+        # included), and the checks' three calls a cell
+        "launches": 3 * len(dec_by_cell)
+        + sum(fam["launches"]["decode_attention"].values()),
+        "launches_by_arch": fam["launches"]["decode_attention"],
+        "max_abs_err": max(t["serving_max_abs_err"]
+                           for t in dec_by_cell.values()),
+        "wrong_scale_err": min(t["wrong_scale_err"]
+                               for t in dec_by_cell.values()),
+        "tolerance": f"abs {DECODE_ATOL}",
+        **{k: dec_t[k] for k in (
+            "ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+            "roofline_pct", "library_ms", "device_ms", "timed_shape",
+            "splits", "cuda_launches_per_call", "bound_f32_cuda_core_ms")},
+        "by_cell": {cell: {k: t[k] for k in (
+            "timed_shape", "splits", "max_abs_err_by_pos", "ms",
+            "device_ms", "plain_ms", "bound_ms", "roofline_pct")}
+            for cell, t in dec_by_cell.items()},
     })
     log(f"[lm] summary: {json.dumps({k: v for k, v in lm.items() if k not in ('flash_kwargs', 'ssd_kwargs')})} "
         f"card-vs-cpu logits max_abs_err {cmp['max_abs_err']:.3g}")

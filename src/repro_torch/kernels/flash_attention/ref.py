@@ -7,8 +7,9 @@ in float32
 over the model's ``(B, S, H, hd)`` layout, GQA by grouping query
 heads over ``K`` key/value heads, masked scores set to ``NEG_INF`` and
 scale ``hd^-0.5``.  The CPU path of ``ops.flash_attention`` and the checks on
-the card use it; the model's one-token decode and cross-attention use
-``sdpa`` directly, with their own ``einsum`` for sharded tensors.  A
+the card use it; cross-attention uses ``sdpa`` directly, and so does the
+one-token decode's plain version (``kernels/decode_attention/ref.py``),
+each with its own ``einsum`` for sharded tensors.  A
 ``scale`` replaces ``hd^-0.5``, and v may have a dim of its own (MLA's
 q.k over 192 dims, v of 128); the output takes v's.
 """

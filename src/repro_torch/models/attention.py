@@ -17,8 +17,12 @@ lies inside a cache that is no ring is checked by ``Model.decode_step``
 (``mla_decode`` also checks an int ``pos`` itself).
 
 GQA's full-sequence attention goes through the flash-attention kernel
-(``kernels.flash_attention.ops``); the one-token decode stays plain
-PyTorch (``sdpa`` over the cache), as in the reference.  MLA's prefill on
+(``kernels.flash_attention.ops``).  The one-token decode goes through the
+decode-attention kernel (``kernels.decode_attention.ops``: the cache read
+in place up to the step's position), a DTensor on the card on each rank's
+shard; the plain version there (``sdpa`` over the whole cache with its
+mask, as the reference's plain jnp decode) serves the CPU and fake
+tensors (the dry run).  MLA's prefill on
 the card goes through the flash kernel's MLA instance (q.k over 192 dims,
 v of 128, MLA's scale: ``flash_ops`` ``MLA_HEAD_DIMS``) on q and k
 concatenated from their latent and rope parts, and never forms the (B, H,
@@ -60,7 +64,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
-from repro_torch.device import einsum, is_dtensor, local_range, relayout
+from repro_torch.device import (einsum, is_dtensor, is_sharded_or_fake,
+                                local_range, relayout)
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import sdpa
 from repro_torch.models.layers import (F32, apply_norm, apply_rope,
@@ -255,14 +261,10 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     slot = pos % W if window else pos
     _write_slot(cache_k, slot, k[:, 0])
     _write_slot(cache_v, slot, v[:, 0])
-    j = torch.arange(W, device=x.device)
-    if window:
-        valid = (j <= pos) | (pos >= W)
-    else:
-        valid = j <= pos
-    mask = valid[None, None, :].expand(B, 1, W)
-    out = sdpa(_q_for_cache(q, cache_k.shape[2]), cache_k, cache_v, mask,
-               einsum=einsum)
+    q = _q_for_cache(q, cache_k.shape[2])
+    if not is_sharded_or_fake(q):
+        q = q.contiguous()
+    out = decode_ops.decode_attention(q, cache_k, cache_v, pos)
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, (cache_k, cache_v)
 

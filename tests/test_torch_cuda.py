@@ -415,6 +415,112 @@ def test_lm_kernels_reject_what_they_do_not_take(dev):
         sd.ssd_scan(x8, dt8, A8, B8, C8, 32)
 
 
+# ---------------------------------------------------------------------------
+# the decode-attention kernel (kernels/decode_attention)
+# ---------------------------------------------------------------------------
+
+DECODE_ATOL = 1e-5   # f32 both sides, the keys summed in another order
+# (B, W, K, G, hd, pos, ring): olmoe-decode's cache at two positions and
+# at 0, zamba2's shared block, llama-vision's GQA (G 4), hd 64 and 160,
+# command-r's G 12, olmoe-longprompt's (split over W), rings past W
+DECODE_SHAPES = [
+    (48, 640, 16, 1, 128, 511, False), (48, 640, 16, 1, 128, 639, False),
+    (48, 640, 16, 1, 128, 0, False), (48, 640, 32, 1, 80, 575, False),
+    (8, 1040, 8, 4, 128, 1000, False), (8, 1040, 16, 1, 64, 700, False),
+    (8, 1040, 8, 4, 160, 1039, False), (2, 1040, 8, 12, 128, 517, False),
+    (16, 2064, 16, 1, 128, 2063, False), (16, 2064, 16, 1, 128, 3, False),
+    (3, 64, 4, 1, 64, 100, True), (3, 64, 4, 1, 64, 40, True),
+    (2, 100, 2, 4, 80, 333, True)]
+
+
+def decode_inputs(B, W, K, G, hd, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, 1, K * G, hd, generator=gen, device=dev)
+    k, v = (torch.randn(B, W, K, hd, generator=gen, device=dev)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("tensor_pos", [False, True])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_attention_kernel_matches_plain(dev, shape, tensor_pos):
+    """One launch against the plain version within DECODE_ATOL, pos as an
+    int or as a device tensor; a 1%-off scale misses the tolerance; two
+    calls are bit-equal; the call counts one launch."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_torch
+    B, W, K, G, hd, pos, ring = shape
+    q, k, v = decode_inputs(B, W, K, G, hd, pos + hd, dev)
+    p = torch.tensor(pos, dtype=torch.long, device=dev) if tensor_pos \
+        else pos
+    want = decode_attention_torch(q, k, v, pos)
+    before = ops.DECODE_LAUNCHES
+    got = ops.decode_attention(q, k, v, p)
+    again = ops.decode_attention(q, k, v, p)
+    torch.cuda.synchronize()
+    assert ops.DECODE_LAUNCHES == before + 2
+    assert float((got - want).abs().max()) <= DECODE_ATOL
+    assert torch.equal(got, again)
+    if pos == 0:      # one visible key: its value row, whatever the scale
+        row = v[:, :1].repeat_interleave(G, 2)
+        assert float((got - row).abs().max()) <= DECODE_ATOL
+        return
+    off = decode_attention_torch(q * 1.01, k, v, pos)
+    assert float((off - want).abs().max()) > DECODE_ATOL
+
+
+def test_decode_attention_reads_no_slot_past_pos(dev):
+    """NaN in every slot past pos changes nothing: those rows are never
+    loaded (the plain version's mask would let NaN through its product)."""
+    from repro_torch.kernels.decode_attention import ops
+    q, k, v = decode_inputs(48, 640, 16, 1, 128, 5, dev)
+    want = ops.decode_attention(q, k, v, 300)
+    k[:, 301:], v[:, 301:] = float("nan"), float("nan")
+    got = ops.decode_attention(q, k, v, 300)
+    assert torch.equal(got, want)
+
+
+def test_decode_attention_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.decode_attention import ops
+    q, k, v = decode_inputs(2, 64, 4, 1, 96, 0, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q, k, v, 3)
+    q, k, v = decode_inputs(2, 64, 4, 1, 64, 0, dev)
+    with pytest.raises(TypeError, match="float32"):
+        ops.decode_attention(q, k.double(), v.double(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, k.transpose(1, 2).contiguous()
+                             .transpose(1, 2), v, 3)
+    with pytest.raises(ValueError, match="int64"):
+        ops.decode_attention(q, k, v, torch.tensor(3, device=dev,
+                                                   dtype=torch.int32))
+    with pytest.raises(ValueError, match="int64"):
+        ops.decode_attention(q, k, v, torch.tensor(3))
+
+
+def test_decode_attention_under_a_graph_equals_eager(dev):
+    """A captured call replayed at a new device position equals the eager
+    call there bit for bit, split over W and not."""
+    from repro_torch.kernels.decode_attention import ops
+    for B, W, K, G, hd in ((16, 2064, 16, 1, 128), (48, 640, 32, 1, 80)):
+        q, k, v = decode_inputs(B, W, K, G, hd, 9, dev)
+        pos = torch.full((), 5, dtype=torch.long, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            ops.decode_attention(q, k, v, pos)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = ops.decode_attention(q, k, v, pos)
+        for p in (7, W // 2, W - 1):
+            pos.fill_(p)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, ops.decode_attention(q, k, v, p)), p
+
+
 def test_reduced_zamba2_on_the_card_matches_the_cpu(dev):
     """Prefill and four greedy decode steps of the reduced model, on the
     card through both kernels and on the CPU through their plain versions,
@@ -1328,12 +1434,82 @@ def test_sharded_mla_prefill_runs_the_kernel(one_rank_mesh):
     torch.testing.assert_close(logits[1], logits[0], rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("spec", [(), ("data", None, None, None),
+                                  (None, None, "model", None),
+                                  (None, "model", None, None)])
+def test_decode_on_cuda_dtensors_runs_the_kernel(one_rank_mesh, spec):
+    """Replicated, batch-, head- or sequence-sharded caches (q laid out
+    alike, replicated beside a sequence-sharded cache) on the one-rank
+    mesh: the decode launches the kernel once on the local shard (the
+    custom op; the partials route along W) and equals the plain tensors'
+    kernel call, bit for bit through the op, within 1e-6 where the
+    partials are merged outside the kernel; no sdpa."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_torch
+    from repro_torch.launch.sharding import P, distribute
+    dev = torch.device("cuda", 0)
+    q, k, v = decode_inputs(2, 640, 4, 2, 128, 11, dev)
+    want = da.decode_attention(q, k, v, 300)
+    seq = "model" in spec[1:2]
+    qs = distribute(q, one_rank_mesh, P() if seq else P(*spec))
+    ks, vs = (distribute(t, one_rank_mesh, P(*spec)) for t in (k, v))
+    before = da.DECODE_LAUNCHES
+    got = da.decode_attention(qs, ks, vs, 300)
+    torch.cuda.synchronize()
+    assert da.DECODE_LAUNCHES == before + 1
+    if seq:
+        torch.testing.assert_close(_full(got), want, rtol=1e-6, atol=1e-6)
+        plain = decode_attention_torch(q, k, v, 300)
+        assert float((_full(got) - plain).abs().max()) <= DECODE_ATOL
+    else:
+        assert got.placements == qs.placements
+        assert torch.equal(_full(got), want)
+
+
+def test_sharded_decode_runs_the_kernel(one_rank_mesh):
+    """Reduced qwen1.5-0.5b, plain and ``shard_model`` (tp) from one seed
+    on the one-rank mesh: each decode step launches the decode kernel once
+    a layer on both, and the logits agree."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    dev = torch.device("cuda", 0)
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    plain = Model(cfg, device=dev, seed=0)
+    sharded = shd.shard_model(Model(cfg, device=dev, seed=0), one_rank_mesh,
+                              cfg, "tp")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))).to(
+        dev)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1))).to(
+        dev) for _ in range(4)]
+    logits = []
+    for model in (plain, sharded):
+        _, cache = model.prefill({"tokens": tokens}, 100)
+        da.reset_launches()
+        out = []
+        for tok in steps:
+            step, cache = model.decode_step(cache, tok)
+            out.append(_full(step))
+        assert da.DECODE_LAUNCHES == cfg.num_layers * len(steps)
+        logits.append(torch.stack(out))
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-6, atol=1e-6)
+
+
 def test_custom_ops_fake_implementations_on_cuda_launch_nothing(dev):
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd_scan import ops as sd
-    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    f0, s0, d0 = fa.LAUNCHES, sd.LAUNCHES, da.DECODE_LAUNCHES
     with FakeTensorMode():
+        qd, kd = (torch.empty(8, n, 16, 64, device=dev) for n in (1, 640))
+        outs = [da.decode_attention(qd, kd, kd, 100),
+                torch.ops.repro_torch.decode_attention(qd, kd, kd, 100)]
         q = torch.empty(8, 1024, 16, 64, device=dev)
         out = fa.flash_attention(q, q, q)
         xh = torch.empty(8, 1024, 32, 64, device=dev)
@@ -1343,7 +1519,8 @@ def test_custom_ops_fake_implementations_on_cuda_launch_nothing(dev):
                                torch.empty(8, 1024, 128, device=dev), 256)
     assert out.shape == q.shape and out.device.type == "cuda"
     assert y.shape == xh.shape and final.shape == (8, 32, 64, 128)
-    assert (fa.LAUNCHES, sd.LAUNCHES) == (f0, s0)
+    assert all(o.shape == qd.shape for o in outs)
+    assert (fa.LAUNCHES, sd.LAUNCHES, da.DECODE_LAUNCHES) == (f0, s0, d0)
 
 
 # ---------------------------------------------------------------------------
@@ -1417,25 +1594,37 @@ def _same_cache(kept, cache):
 @pytest.mark.parametrize("arch", GRAPH_ARCHS)
 def test_graph_replays_equal_the_eager_step(dev, arch):
     """Served tokens and every step's logits of the graph-replaying engine
-    equal the eager ``decode_step`` loop's bit for bit; a shape's first
+    equal the eager ``decode_step`` loop's bit for bit, the decode-attention
+    kernel on both sides (GQA archs); a shape's first
     serve captures once and replays every step but the first, the next
     serve only replays, and a new batch size captures once more.  A serve
     of new, shorter prompts of the same B replays the same graph over the
     refilled cache and still equals the eager loop over those prompts: a
     tensor the refill left stale (the tail past the shorter prompts) or
     put at a new address would show there."""
+    from repro_torch.kernels.decode_attention import ops as da
     model, eng, reqs = _graph_model(arch, dev)
+    gqa = model.cfg.mla is None and model.cfg.family != "ssm"
 
     def served_and_eager(lens, captures, replays):
         steps = _recorded(model)
+        d0 = da.DECODE_LAUNCHES
         out = eng.serve(reqs(12, lens=lens))
+        served = da.DECODE_LAUNCHES - d0
         st = eng.last_stats
         assert st["decode_steps"] == 11
         assert (st["graph_captures"], st["graph_steps"]) == (captures,
                                                              replays)
         del model.decode_step
+        d0 = da.DECODE_LAUNCHES
         want, eager_steps, cache = _eager(
             model, eng._batch(reqs(12, lens=lens), None), 12)
+        eager = da.DECODE_LAUNCHES - d0
+        # the decode kernel on both sides: a capture's eager step and the
+        # capture launch it once a layer, the eager loop 11 times
+        assert (eager > 0) == gqa and (served > 0) == (gqa and
+                                                      captures == 1)
+        assert eager * 2 * captures == served * 11
         np.testing.assert_array_equal(np.stack([o.tokens for o in out]),
                                       want)
         assert len(steps) == len(eager_steps) == 11

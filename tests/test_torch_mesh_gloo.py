@@ -20,7 +20,15 @@ vocab-sharded ``embed`` gives finite logits equal to the unsharded ones.
 Two ranks, mesh (1, 2) ``tp``: reduced deepseek-v2-ep8 with MLA's card
 route on a stand-in launch (the plain version written into the kernel's
 output): each layer's MLA reaches the launch once a rank, on half the
-heads, and the prefill logits equal the unsharded einsum's.
+heads, and the prefill logits equal the unsharded einsum's.  The
+decode's card route on a stand-in launch (the plain partials of the
+kernel's splits): two ranks, mesh (1, 2) ``tp``, reduced qwen1.5-0.5b
+(each rank's half of the heads through the custom op) and stablelm-12b
+with ``num_kv_heads=1`` (each rank's half of the cache sharded along W,
+partials merged across the ranks), and four ranks, mesh (2, 2), the
+latter beside a batch split: each layer's decode reaches the launch once
+a rank and step, and ten decode steps' logits stay within 1e-5 of the
+unsharded port's plain decode.
 """
 import json
 import os
@@ -114,3 +122,22 @@ def test_mlas_card_route_on_sharded_heads_equals_the_unsharded_port(
     assert got["local_qkv"] == [[[2, 64, H // 2, 96], [2, 64, H // 2, 96],
                                  [2, 64, H // 2, 64]]] * L
     assert got["prefill_logits"] <= SERVE_TOL
+
+
+@pytest.mark.parametrize("name", ["tp_qwen_decode_route",
+                                  "tp_stablelm_kv1_decode_route",
+                                  "tp_stablelm_kv1_decode_route_2x2"])
+def test_decodes_card_route_on_shards_equals_the_unsharded_port(results,
+                                                                name):
+    got = case(results, name)
+    seq = "kv1" in name
+    assert got["launches"] == got["num_layers"] * got["steps"]
+    # partials only where the cache is sharded along W (the stacked
+    # cache's dim 2), whose ranks gather q's four heads over one
+    # key/value head; else half of q's and of the cache's four heads
+    assert got["partial_calls"] == (got["launches"] if seq else 0)
+    assert ("Shard(dim=2)" in got["cache_placements"]) == seq
+    (qb, _, qh, _), (cb, _, ck, _), partial = got["local"]
+    assert (qh, ck, partial) == ((4, 1, True) if seq else (2, 2, False))
+    assert qb == cb == (1 if name.endswith("2x2") else 2)
+    assert got["decode_logits"] <= SERVE_TOL

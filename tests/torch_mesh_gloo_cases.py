@@ -6,7 +6,8 @@
 starts two ranks (``torch.multiprocessing.spawn``, gloo on a free
 localhost port) and runs the two-rank cases, then four ranks for the
 (2, 2) cases, then one rank for the one-rank case, then two ranks for
-the MLA card route's case; rank 0 writes each
+the MLA card route's and the decode card route's cases (the decode's
+2 x 2 case runs with the four ranks); rank 0 writes each
 case's numbers to OUT.json.  Every sharded model is held to the
 unsharded port from the same seed.
 """
@@ -40,6 +41,12 @@ TRAIN_2X2 = [("2d_qwen_2x2", "qwen1.5-0.5b", (2, 2)),
              ("2d_olmoe_2x2", "olmoe-1b-7b", (2, 2)),
              ("2d_mamba2_2x2", "mamba2-370m", (2, 2))]
 DECODE_STEPS = 10
+# the decode's card route on a stand-in launch: (name, (arch, (data,
+# model), num_kv_heads or 0)); head-sharded, then sequence-sharded caches
+DECODE_ROUTE = [("tp_qwen_decode_route", ("qwen1.5-0.5b", (1, 2), 0)),
+                ("tp_stablelm_kv1_decode_route", ("stablelm-12b", (1, 2), 1))]
+DECODE_ROUTE_2X2 = [("tp_stablelm_kv1_decode_route_2x2",
+                     ("stablelm-12b", (2, 2), 1))]
 
 
 def _port():
@@ -162,6 +169,86 @@ def mla_card_route_case(mesh_shape):
             "local_qkv": local}
 
 
+def _decode_stand_in(log):
+    """A stand-in for the decode kernel's launch on the CPU: the plain
+    partials of each split's range (keys j <= pos), merged in split order
+    into the output, or left in the scratch where the call gives no
+    output (a cache sharded along W); ``log`` gets each call's local q and
+    cache shapes and whether it left partials."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import decode_partials_torch
+
+    def kernel(q, ck, cv, out, part_acc, part_ml, pos, splits, chunk):
+        log.append([list(q.shape), list(ck.shape), out is None])
+        B, _, H, hd = q.shape
+        K = ck.shape[2]
+        G = H // K
+        parts = [decode_partials_torch(q, ck[:, s * chunk:(s + 1) * chunk],
+                                       cv[:, s * chunk:(s + 1) * chunk],
+                                       int(pos) - s * chunk)
+                 for s in range(splits)]
+        if out is None:
+            acc = part_acc.view(B, K, splits, G, hd)
+            ml = part_ml.view(B, K, splits, G, 2)
+            for s, (m, l, a) in enumerate(parts):
+                acc[:, :, s] = a.view(B, K, G, hd)
+                ml[:, :, s, :, 0] = m.view(B, K, G)
+                ml[:, :, s, :, 1] = l.view(B, K, G)
+            return
+        m, l, a = da.merge_partials(*(torch.stack(t) for t in zip(*parts)),
+                                    0)
+        out.copy_((a / l[..., None])[:, None])
+    return kernel
+
+
+def decode_card_route_case(arch, mesh_shape, kv):
+    """Reduced ``arch`` sharded (tp) with the decode's card route taken on
+    the CPU: every tensor counts as on the card and the launch is the
+    stand-in above, so each layer's decode reaches the custom op on each
+    rank's head or batch shard, or, where K does not divide the model
+    axis, each rank's range of the cache sharded along W, whose partials
+    the ranks merge.  Ten decode steps held to the unsharded port's plain
+    decode."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.models.model import Model
+    get_arch, shd, make_host_mesh = _port()
+    cfg = get_arch(arch).reduced()
+    if kv:
+        cfg = dataclasses.replace(cfg, num_kv_heads=kv)
+    mesh = make_host_mesh(model=mesh_shape[1], data=mesh_shape[0],
+                          device_type="cpu")
+    ref = Model(cfg, device="cpu", seed=0)
+    model = shd.shard_model(Model(cfg, device="cpu", seed=0), mesh, cfg,
+                            "tp")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    steps = [torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+             for _ in range(DECODE_STEPS)]
+    _, ref_cache = ref.prefill({"tokens": tokens}, 100)
+    want = []
+    for tok in steps:
+        logits, ref_cache = ref.decode_step(ref_cache, tok)
+        want.append(logits)
+    _, cache = model.prefill({"tokens": tokens}, 100)
+    log = []
+    kept = da._on_card, da._kernel, da._sm_count
+    da._on_card, da._kernel = (lambda t: True), _decode_stand_in(log)
+    da._sm_count = lambda dev: 132
+    da.reset_launches()
+    try:
+        step = 0.0
+        for tok, w in zip(steps, want):
+            got, cache = model.decode_step(cache, tok)
+            step = max(step, _diff(got, w))
+        launches = da.DECODE_LAUNCHES
+    finally:
+        da._on_card, da._kernel, da._sm_count = kept
+    return {"decode_logits": step, "launches": launches,
+            "num_layers": cfg.num_layers, "steps": DECODE_STEPS,
+            "cache_placements": str(cache["k"].placements),
+            "local": log[0], "partial_calls": sum(c[2] for c in log)}
+
+
 def host_mesh_case():
     """The counterpart of the reference's test_pjit_forward_on_host_mesh:
     the reduced qwen's forward at mesh (1, 1), embed vocab-sharded."""
@@ -219,10 +306,14 @@ def _cases(serve, train):
 
 def main(out: str) -> int:
     results = _spawn(2, _cases(SERVE, TRAIN), out)
-    results.update(_spawn(4, _cases(SERVE_2X2, TRAIN_2X2), out))
+    results.update(_spawn(4, _cases(SERVE_2X2, TRAIN_2X2)
+                          + [(name, decode_card_route_case, args)
+                             for name, args in DECODE_ROUTE_2X2], out))
     results.update(_spawn(1, [("host_mesh", host_mesh_case, ())], out))
     results.update(_spawn(2, [("tp_dsv2_mla_route", mla_card_route_case,
-                               ((1, 2),))], out))
+                               ((1, 2),))]
+                          + [(name, decode_card_route_case, args)
+                             for name, args in DECODE_ROUTE], out))
     Path(out).write_text(json.dumps(results))
     return 0
 
