@@ -398,12 +398,13 @@ def iou_launcher(boxes_list, dev, per_thread=None):
     its output allocated once (so the time is the launch's alone), at the
     wrapper's outputs per thread unless ``per_thread`` is given."""
     import torch
+    from repro_torch.kernels import native
     from repro_torch.kernels.iou_matrix import ops
     x, offs, host = ops.pack_ragged(boxes_list, dev)
     off, out_off, total = offs[0], offs[1], int(host[1, -1])
     out = torch.empty((total,), dtype=torch.float32, device=dev)
-    lib, stream = ops._library(), torch.cuda.current_stream(dev).cuda_stream
-    k = (ops.per_thread(total, ops._sm_count(dev)) if per_thread is None
+    lib, stream = ops.LIB.load(), torch.cuda.current_stream(dev).cuda_stream
+    k = (ops.per_thread(total, native.sm_count(dev)) if per_thread is None
          else per_thread)
 
     def kernel():
@@ -1062,7 +1063,7 @@ def flash_at_serving_shape(run: dict, dev) -> dict:
     B, S, H, hd = q.shape
     K = k.shape[2]
     got, err = flash_check_at_serving_shape(run)
-    lib = ops._library()
+    lib = ops.LIB.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def kernel():
@@ -1152,7 +1153,7 @@ def flash_mla_at_benchmark_shape(dev) -> dict:
         raise AssertionError(f"flash_mla at {MLA_BENCH_SHAPE}: launches "
                              f"{launches}")
     err, wrong = mla_rows_err(q, k, v, True, scale, got)
-    lib = ops._mla_library()
+    lib = ops.MLA_LIB.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def kernel():
@@ -1203,6 +1204,7 @@ def decode_attention_at_benchmark_shapes(dev) -> dict:
     ``launch_cost``'s flops at the CUDA-core rate (the kernel's route),
     which ``decode_attn_roofline`` divides by too."""
     import torch
+    from repro_torch.kernels import native
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_torch
@@ -1230,15 +1232,16 @@ def decode_attention_at_benchmark_shapes(dev) -> dict:
                     f"decode_attention off by {errs[at]} at {cell} "
                     f"{(B, W, H, K, hd)} pos {at} (tolerance {DECODE_ATOL}; "
                     f"a {DECODE_WRONG_SCALE}x scale gives {wrongs[at]})")
-        splits, chunk = ops.split_plan(B, K, W, ops._sm_count(dev))
+        splits, chunk = ops.split_plan(B, K, W, native.sm_count(dev))
         part = (q.new_empty(B * K * splits * (H // K) * (hd + 2))
                 if splits > 1 else None)
         n = B * K * splits * (H // K) * hd
 
         def kernel():
-            ops._kernel(q, k, v, got, None if part is None else part[:n],
-                        None if part is None else part[n:], pos, splits,
-                        chunk)
+            ops.LIB.call(q.device, q, k, v, got,
+                         None if part is None else part[:n],
+                         None if part is None else part[n:], None, pos,
+                         B, W, H, K, hd, splits, chunk)
 
         def plain():
             decode_attention_torch(q, k, v, pos)
@@ -1307,7 +1310,7 @@ def ssd_at_serving_shape(run: dict, dev) -> dict:
         f"max_abs_err={errs[1][0]:.3g} (rel {errs[1][1]:.3g})")
     if not (errs[0][1] <= SSD_RTOL and errs[1][1] <= SSD_RTOL):
         raise AssertionError("ssd_scan off at the serving shape")
-    lib = ops._library()
+    lib = ops.LIB.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     work = ops.scratch(B, S, nh, hd, N, Q, dev)

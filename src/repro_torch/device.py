@@ -62,14 +62,6 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def is_sharded_or_fake(*tensors) -> bool:
-    """Whether any of ``tensors`` is a DTensor or a fake tensor (one made
-    under ``FakeTensorMode``, which has no memory behind it)."""
-    from torch._subclasses.fake_tensor import is_fake
-    return any(isinstance(t, torch.Tensor) and (is_dtensor(t) or is_fake(t))
-               for t in tensors)
-
-
 @contextmanager
 def implicit_replication():
     """A context in which a plain tensor meeting a DTensor counts as

@@ -25,20 +25,21 @@ graph capture counts once, its replays not at all), apart from the flash
 kernel's ``LAUNCHES``; ``launch_cost`` gives a call's work from its
 shapes and position.
 
-Sharded and fake tensors: a fake tensor (the dry run) and a ``DTensor``
-on the CPU take the plain version with ``device.einsum``, as the decode
-did before the kernel.  A ``DTensor`` on the card (an int ``pos``: a
-sharded model steps eagerly) takes the kernel on each rank's shard:
-where the cache is replicated or sharded over the batch or the key/value
-heads, through the custom op ``torch.ops.repro_torch.decode_attention``,
-whose sharding rule keeps q, the cache and the output on one placement
-per mesh dimension (replicated, the batch, or the heads where the query
-and key/value heads both divide every mesh dimension, as the flash op's
-rule) and whose fake implementation launches nothing; where the cache is
-sharded along W (``launch/sharding.py``: K does not divide the model
-axis), each rank runs the kernel over its own range of W, which leaves
-the splits' partials (max, sum, accumulator) instead of an output, and
-the ranks gather those small partials and sum them in rank order
+Sharded and fake tensors (``native.route``): a fake tensor (the dry run)
+and a ``DTensor`` on the CPU take the plain version with
+``device.einsum``, as the decode did before the kernel.  A ``DTensor`` on
+the card (an int ``pos``: a sharded model steps eagerly) takes the kernel
+on each rank's shard: where the cache is replicated or sharded over the
+batch or the key/value heads, through the custom op
+``torch.ops.repro_torch.decode_attention``, whose sharding rule is the
+flash op's (``native.head_sharding``: q, the cache and the output
+replicated, sharded over the batch, or over the heads where both head
+counts divide every mesh dimension) and whose fake implementation
+launches nothing; where the cache is sharded along W
+(``launch/sharding.py``: K does not divide the model axis), each rank
+runs the kernel over its own range of W, which leaves the splits'
+partials (max, sum, accumulator) instead of an output, and the ranks
+gather those small partials and sum them in rank order
 (``merge_partials``): the cache never moves.
 """
 from __future__ import annotations
@@ -46,12 +47,12 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.device import einsum, is_dtensor, local_range, relayout
-from repro_torch.kernels import build
+from repro_torch.kernels import native
 from repro_torch.kernels.decode_attention.ref import (decode_attention_torch,
                                                       decode_partials_torch)
 
@@ -65,8 +66,10 @@ TILE_ROWS = 32            # rows of a K (and of a V) tile (csrc: kTile)
 SOFTMAX_FLOPS = 5         # per visible key and head: scale, max, sub, exp, sum
 
 DECODE_LAUNCHES = 0
-_LIB = None
-_SMS: Dict[int, int] = {}
+
+LIB = native.Library(SOURCE, "decode_attention",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 7)
 
 
 def reset_launches() -> None:
@@ -98,44 +101,9 @@ def launch_cost(B: int, H: int, K: int, hd: int, pos: int,
             4 * (2 * B * H * hd + 2 * B * n * K * hd))
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load(SOURCE)
-        lib.decode_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 7
-            + [ctypes.c_void_p])
-        lib.decode_attention_launch.restype = ctypes.c_int
-        lib.decode_attention_error_string.argtypes = [ctypes.c_int]
-        lib.decode_attention_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
-def _sm_count(dev: torch.device) -> int:
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SMS[index]
-
-
 def _check(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
            pos) -> None:
-    for t, name in ((q, "q"), (cache_k, "cache_k"), (cache_v, "cache_v")):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != q.device:
-            raise ValueError(f"q, cache_k, cache_v on different devices: "
-                             f"{q.device}, {cache_k.device}, "
-                             f"{cache_v.device}")
+    native.check((q, "q", 4), (cache_k, "cache_k", 4), (cache_v, "cache_v", 4))
     B, one, H, hd = q.shape
     if one != 1:
         raise ValueError(f"q must hold one token (B, 1, H, hd), got "
@@ -160,67 +128,44 @@ def _check(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
         raise ValueError(f"pos must be a whole number >= 0, got {pos}")
 
 
-def _kernel(q, cache_k, cache_v, out, part_acc, part_ml, pos, splits: int,
-            chunk: int) -> None:
-    """One launch of the kernel (and of the combine, where splits > 1) on
-    the current stream; raises on a CUDA error."""
+def _run(q, cache_k, cache_v, pos, out=None):
+    """One launch of the kernel (and of the combine, where it splits the
+    positions and has an ``out``) on the current stream.  With no ``out``
+    each split's partials are left in the scratch, which is returned with
+    the number of splits: the accumulators (B, K, splits, G, hd), then (m,
+    l) (B, K, splits, G, 2).  Raises for a head dim, group or alignment
+    the kernel does not take before anything is launched; an empty q
+    launches nothing.  Ring or not, the keys a step sees are the first
+    min(pos + 1, W) slots, so the kernel needs no ring flag."""
+    global DECODE_LAUNCHES
     B, _, H, hd = q.shape
     W, K = cache_k.shape[1], cache_k.shape[2]
-    tensor_pos = isinstance(pos, torch.Tensor)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.decode_attention_launch(
-            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            out.data_ptr() if out is not None else None,
-            part_acc.data_ptr() if part_acc is not None else None,
-            part_ml.data_ptr() if part_ml is not None else None,
-            pos.data_ptr() if tensor_pos else None,
-            0 if tensor_pos else int(pos), B, W, H, K, hd, splits, chunk,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        msg = lib.decode_attention_error_string(err)
-        raise RuntimeError(
-            f"decode_attention kernel launch failed: CUDA error {err} "
-            f"({msg.decode() if msg else 'unknown'})")
-
-
-def _refuse(q, cache_k, cache_v) -> None:
-    """Raise for a head dim, group or alignment the kernel does not take,
-    before anything is launched."""
-    B, _, H, hd = q.shape
-    K = cache_k.shape[2]
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported by the decode kernel "
                          f"(one of {KERNEL_HEAD_DIMS})")
     if H // K > MAX_GROUP:
         raise ValueError(f"{H // K} query heads a key/value head; the decode "
                          f"kernel takes up to {MAX_GROUP}")
-    for t, name in ((q, "q"), (cache_k, "cache_k"), (cache_v, "cache_v")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
-                             f"copies)")
+    native.aligned(q=q, cache_k=cache_k, cache_v=cache_v)
+    if q.numel() == 0:
+        return None, 0
+    splits, chunk = split_plan(B, K, W, native.sm_count(q.device))
+    n = B * K * splits * (H // K)
+    part = q.new_empty(n * (hd + 2)) if out is None or splits > 1 else None
+    tensor_pos = isinstance(pos, torch.Tensor)
+    LIB.call(q.device, q, cache_k, cache_v, out,
+             None if part is None else part[:n * hd],
+             None if part is None else part[n * hd:],
+             pos if tensor_pos else None, 0 if tensor_pos else int(pos),
+             B, W, H, K, hd, splits, chunk)
+    DECODE_LAUNCHES += 1
+    return part, splits
 
 
 def _launch(q, cache_k, cache_v, pos) -> torch.Tensor:
-    """One call of the kernel on the current stream; raises on a shape it
-    does not take and on a CUDA error.  Ring or not, the keys a step sees
-    are the first min(pos + 1, W) slots, so the kernel needs no ring
-    flag."""
-    global DECODE_LAUNCHES
-    _refuse(q, cache_k, cache_v)
-    B, _, H, hd = q.shape
-    W, K = cache_k.shape[1], cache_k.shape[2]
+    """One call of the kernel into a new output (``_run``)."""
     out = q.new_empty(q.shape)
-    if out.numel() == 0:
-        return out
-    splits, chunk = split_plan(B, K, W, _sm_count(q.device))
-    part_acc = part_ml = None
-    if splits > 1:
-        n = B * K * splits * (H // K)
-        scratch = q.new_empty(n * (hd + 2))
-        part_acc, part_ml = scratch[:n * hd], scratch[n * hd:]
-    _kernel(q, cache_k, cache_v, out, part_acc, part_ml, pos, splits, chunk)
-    DECODE_LAUNCHES += 1
+    _run(q, cache_k, cache_v, pos, out)
     return out
 
 
@@ -242,47 +187,34 @@ def _partials(q, cache_k, cache_v, pos: int):
     partials and merged here, on the card; the plain version on the CPU.
     A negative ``pos`` or an empty cache gives empty partials and launches
     nothing."""
-    global DECODE_LAUNCHES
     B, _, H, hd = q.shape
     W, K = cache_k.shape[1], cache_k.shape[2]
-    if pos < 0 or W == 0 or q.numel() == 0 or not _on_card(q):
+    if pos < 0 or W == 0 or q.numel() == 0 or \
+            native.route(q) != native.CUDA:
         return decode_partials_torch(q, cache_k, cache_v, pos)
     _check(q, cache_k, cache_v, pos)
-    _refuse(q, cache_k, cache_v)
+    part, splits = _run(q, cache_k, cache_v, pos)
     G = H // K
-    splits, chunk = split_plan(B, K, W, _sm_count(q.device))
     n = B * K * splits * G
-    scratch = q.new_empty(n * (hd + 2))
-    _kernel(q, cache_k, cache_v, None, scratch[:n * hd], scratch[n * hd:],
-            pos, splits, chunk)
-    DECODE_LAUNCHES += 1
-    acc = scratch[:n * hd].view(B, K, splits, G, hd)
-    ml = scratch[n * hd:].view(B, K, splits, G, 2)
+    acc = part[:n * hd].view(B, K, splits, G, hd)
+    ml = part[n * hd:].view(B, K, splits, G, 2)
     m, l, acc = merge_partials(ml[..., 0], ml[..., 1], acc, 2)
     return m.reshape(B, H), l.reshape(B, H), acc.reshape(B, H, hd)
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos) -> torch.Tensor:
     """q: (B, 1, H, hd); cache_k/v: (B, W, K, hd) float32, contiguous;
     ``pos`` an int or a 0-d int64 tensor on q's device -> (B, 1, H, hd)."""
-    from torch._subclasses.fake_tensor import is_fake
-    tensors = (q, cache_k, cache_v)
-    if any(is_fake(t) for t in tensors) or (
-            any(is_dtensor(t) for t in tensors) and not _on_card(q)):
+    case = native.route(q, cache_k, cache_v)
+    if case in (native.FAKE, native.SHARDED_CPU):
         return decode_attention_torch(q, cache_k, cache_v, pos,
                                       einsum=einsum)
-    if any(is_dtensor(t) for t in tensors):
+    if case == native.SHARDED_CUDA:
         return _sharded(q, cache_k, cache_v, pos)
     _check(q, cache_k, cache_v, pos)
-    if _on_card(q):
+    if case == native.CUDA:
         return _launch(q, cache_k, cache_v, pos)
-    if q.device.type != "cpu":
-        raise ValueError(f"q lies on unsupported device {q.device}")
     return decode_attention_torch(q, cache_k, cache_v, pos)
 
 
@@ -350,7 +282,7 @@ def decode_attention_op(q: torch.Tensor, cache_k: torch.Tensor,
     plain version on the CPU."""
     q, cache_k, cache_v = (t.contiguous() for t in (q, cache_k, cache_v))
     _check(q, cache_k, cache_v, pos)
-    if _on_card(q):
+    if native.route(q) == native.CUDA:
         return _launch(q, cache_k, cache_v, pos)
     return decode_attention_torch(q, cache_k, cache_v, pos).contiguous()
 
@@ -370,19 +302,9 @@ def _register_formulas() -> None:
 
     if not torch.distributed.is_available():
         return
-    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
-
-    # replicated, sharded over the batch, or over the heads where both
-    # head counts divide every mesh dim (a rank holds whole GQA groups)
-    @register_sharding(torch.ops.repro_torch.decode_attention.default)
-    def _sharding(q, cache_k, cache_v, pos):
-        rules = [([Replicate()], [Replicate()] * 3 + [None]),
-                 ([Shard(0)], [Shard(0)] * 3 + [None])]
-        n = max(q.mesh.shape)
-        if q.shape[2] % n == 0 and cache_k.shape[2] % n == 0:
-            rules.append(([Shard(2)], [Shard(2)] * 3 + [None]))
-        return rules
+    register_sharding(torch.ops.repro_torch.decode_attention.default)(
+        native.head_sharding)
 
 
 _register_formulas()

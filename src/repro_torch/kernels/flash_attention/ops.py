@@ -33,37 +33,37 @@ trains through the plain ``_sdpa``).  The forward never runs the plain
 version on the card.  A call that needs no gradient (serving, under
 ``no_grad``) launches the kernel directly.
 
-Sharded and fake tensors: a ``DTensor`` (``launch/sharding.py``) or a
-fake tensor (``FakeTensorMode``, the dry run of ``launch/dryrun.py``)
-goes through the custom op ``torch.ops.repro_torch.flash_attention``
-instead (``torch.ops.repro_torch.flash_mla``, with its scale, for an MLA
-call), which DTensor and the dispatch modes see as one operator.  Its
+Sharded and fake tensors (``native.route``): a ``DTensor``
+(``launch/sharding.py``) or a fake tensor (``FakeTensorMode``, the dry run
+of ``launch/dryrun.py``) goes through the custom op
+``torch.ops.repro_torch.flash_attention`` instead
+(``torch.ops.repro_torch.flash_mla``, with its scale, for an MLA call),
+which DTensor and the dispatch modes see as one operator.  Its
 CUDA and CPU implementation is the call above on the local tensors (the
 kernel for a CUDA shard, made contiguous first; the plain version for a
 CPU one); its fake implementation gives the output's shape and launches
 nothing; its autograd formula is ``FlashAttention``'s backward (on each
 rank's local shards for a DTensor, ``_backward_op``); its FLOP
 formula is ``launch_cost``'s (``torch.utils.flop_counter``); and its
-sharding rule (``register_sharding``) keeps q, k, v and the output on
-one placement per mesh dimension: replicated, sharded over the batch, or
-sharded over the heads where the query and key/value heads both divide
-every mesh dimension (a rank then holds whole GQA groups).  A plain
+sharding rule (``register_sharding``) is ``native.head_sharding``: q, k,
+v and the output replicated, sharded over the batch, or sharded over the
+heads where both head counts divide every mesh dimension.  A plain
 tensor keeps the route above, so no counter or number of the unsharded
 port moves.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from repro_torch.device import is_dtensor, is_sharded_or_fake
-from repro_torch.kernels import build
+from repro_torch.device import is_dtensor
+from repro_torch.kernels import native
 from repro_torch.kernels.flash_attention.ref import flash_attention_torch
-from repro_torch.obs.tracing import profile_range
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MLA_SOURCE = SOURCE.with_name("flash_mla.cu")
@@ -81,8 +81,12 @@ LAUNCHES = 0
 MLA_LAUNCHES = 0         # those of LAUNCHES that ran the MLA library
 FLOPS = 0                # of the launches counted in LAUNCHES
 BYTES = 0
-_LIB = None
-_MLA_LIB = None
+
+LIB = native.Library(SOURCE, "flash_attention",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
+MLA_LIB = native.Library(MLA_SOURCE, "flash_mla",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                         + [ctypes.c_float])
 
 
 def reset_launches() -> None:
@@ -111,49 +115,10 @@ def launch_cost(B: int, S: int, H: int, K: int, hd: int, causal: bool,
             4 * (B * S * H * (hd + dv) + B * S * K * (hd + dv)))
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load(SOURCE)
-        lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
-def _mla_library() -> ctypes.CDLL:
-    """The MLA instances' library (built at its first use)."""
-    global _MLA_LIB
-    if _MLA_LIB is None:
-        lib = build.load(MLA_SOURCE)
-        lib.flash_mla_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                          ctypes.c_void_p])
-        lib.flash_mla_launch.restype = ctypes.c_int
-        lib.flash_mla_error_string.argtypes = [ctypes.c_int]
-        lib.flash_mla_error_string.restype = ctypes.c_char_p
-        _MLA_LIB = lib
-    return _MLA_LIB
-
-
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            contiguous: bool = True) -> None:
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be 4-D (B, S, heads, hd), got "
-                             f"{tuple(t.shape)}")
-        if contiguous and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"{name} lies on unsupported device {t.device}")
+    native.check((q, "q", 4), (k, "k", 4), (v, "v", 4),
+                 contiguous=contiguous)
     B, S, H, hd = q.shape
     if k.shape[:3] != v.shape[:3]:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
@@ -164,44 +129,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if K == 0 or H % K:
         raise ValueError(f"{H} query heads are not a multiple of {K} "
                          f"key/value heads")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q, k, v on different devices: {q.device}, "
-                         f"{k.device}, {v.device}")
-
-
-def _kernel(q, k, v, out, causal: bool, window: int) -> None:
-    """One launch of the CUDA kernel on the current stream; raises on a
-    CUDA error."""
-    B, S, H, hd = q.shape
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, k.shape[2], hd, int(bool(causal)), int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, lib.flash_attention_error_string, "flash_attention")
-
-
-def _mla_kernel(q, k, v, out, causal: bool, scale: float) -> None:
-    """One launch of the MLA instance on the current stream; raises on a
-    CUDA error."""
-    B, S, H, dk = q.shape
-    lib = _mla_library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_mla_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, k.shape[2], dk, v.shape[3], int(bool(causal)),
-            scale * LOG2E,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, lib.flash_mla_error_string, "flash_mla")
-
-
-def _raise_on(err: int, error_string, name: str) -> None:
-    if err:
-        msg = error_string(err)
-        raise RuntimeError(
-            f"{name} kernel launch failed: CUDA error {err} "
-            f"({msg.decode() if msg else 'unknown'})")
 
 
 def _is_mla(q, v, scale) -> bool:
@@ -234,16 +161,15 @@ def _launch(q, k, v, causal: bool, window: int,
     out = q.new_empty((B, S, H, dv))
     if out.numel() == 0:
         return out
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
-                             f"copies)")
+    native.aligned(q=q, k=k, v=v)
     if mla:
-        _mla_kernel(q, k, v, out, causal,
-                    hd ** -0.5 if scale is None else scale)
+        MLA_LIB.call(q.device, q, k, v, out, B, S, H, K, hd, dv,
+                     int(bool(causal)),
+                     (hd ** -0.5 if scale is None else scale) * LOG2E)
         MLA_LAUNCHES += 1
     else:
-        _kernel(q, k, v, out, causal, window)
+        LIB.call(q.device, q, k, v, out, B, S, H, K, hd, int(bool(causal)),
+                 int(window))
     LAUNCHES += 1
     flops, nbytes = launch_cost(B, S, H, K, hd, causal, window, dv)
     FLOPS += flops
@@ -271,21 +197,14 @@ class FlashAttention(torch.autograd.Function):
 def _backward(ctx, grad_out):
     """The plain version recomputed on the saved q, k, v and
     differentiated (``FlashAttention``)."""
-    return _plain_grads(ctx.saved_tensors, grad_out, ctx.needs_input_grad[:3],
-                        ctx.causal, ctx.window,
-                        getattr(ctx, "scale", None)) + (None, None)
+    return _recompute(ctx, ctx.saved_tensors, grad_out) + (None, None)
 
 
-def _plain_grads(saved, grad_out, need, causal: bool, window: int,
-                 scale: Optional[float] = None):
-    # the range lets a profile read the recompute's device time apart
-    with torch.enable_grad(), profile_range(BACKWARD_RANGE):
-        ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-        out = flash_attention_torch(*ins, causal=causal, window=window,
-                                    scale=scale)
-        grads = iter(torch.autograd.grad(
-            out, [t for t in ins if t.requires_grad], grad_out))
-    return tuple(next(grads) if n else None for n in need)
+def _recompute(ctx, saved, grad_out):
+    plain = functools.partial(flash_attention_torch, causal=ctx.causal,
+                              window=ctx.window, scale=ctx.scale)
+    return native.plain_grads(plain, saved, (grad_out,),
+                              ctx.needs_input_grad[:3], BACKWARD_RANGE)
 
 
 def _backward_op(ctx, grad_out):
@@ -296,7 +215,6 @@ def _backward_op(ctx, grad_out):
     of a rank reads only its own rows and heads, and the gradients keep
     that layout."""
     q, k, v = ctx.saved_tensors
-    need = ctx.needs_input_grad[:3]
     if not is_dtensor(q):
         return _backward(ctx, grad_out)
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -310,24 +228,11 @@ def _backward_op(ctx, grad_out):
                  for p in place]
     ins = [t.redistribute(mesh, place) for t in (q, k, v)]
     g = grad_out.redistribute(mesh, place)
-    local = _plain_grads([t.to_local() for t in ins], g.to_local(), need,
-                         ctx.causal, ctx.window, getattr(ctx, "scale", None))
+    local = _recompute(ctx, [t.to_local() for t in ins], g.to_local())
     return tuple(None if lg is None else DTensor.from_local(
         lg.contiguous(), mesh, place, run_check=False, shape=t.shape,
         stride=t.stride())
         for lg, t in zip(local, ins)) + (None, None)
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
-
-
-def reaches_kernel(t: torch.Tensor) -> bool:
-    """Whether a call on ``t`` launches a kernel, itself or through the
-    custom op on each rank's shard: a plain tensor or a DTensor on the
-    card, not a fake tensor."""
-    from torch._subclasses.fake_tensor import is_fake
-    return _on_card(t) and not is_fake(t)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -336,27 +241,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, hd); k: (B, S, K, hd), v: (B, S, K, dv) float32 ->
     (B, S, H, dv); dv != hd takes the MLA library, and only such a call
     takes a ``scale`` (default ``hd^-0.5``)."""
-    sharded = is_sharded_or_fake(q, k, v)
-    _check(q, k, v, contiguous=not sharded)
+    case = native.route(q, k, v)
+    _check(q, k, v, contiguous=case in (native.CUDA, native.CPU))
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     mla = _is_mla(q, v, scale)
-    if sharded:
-        if mla:
-            if window:
-                raise ValueError("the MLA kernel takes no window")
-            return torch.ops.repro_torch.flash_mla(
-                q, k, v, causal, q.shape[3] ** -0.5 if scale is None
-                else float(scale))
-        return torch.ops.repro_torch.flash_attention(q, k, v, causal,
-                                                     window)
-    if _on_card(q):
+    if case == native.CPU:
+        return flash_attention_torch(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    if case == native.CUDA:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window, scale)
         return _launch(q, k, v, causal, window, scale)
-    return flash_attention_torch(q, k, v, causal=causal, window=window,
-                                 scale=scale)
+    # a DTensor or a fake tensor: the custom op
+    if mla:
+        if window:
+            raise ValueError("the MLA kernel takes no window")
+        return torch.ops.repro_torch.flash_mla(
+            q, k, v, causal, q.shape[3] ** -0.5 if scale is None
+            else float(scale))
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +275,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version on the CPU."""
     q, k, v = (t.contiguous() for t in (q, k, v))
     _check(q, k, v)
-    if _on_card(q):
+    if native.route(q) == native.CUDA:
         return _launch(q, k, v, causal, window)
     # contiguous, as the kernel's output and the fake one are
     return flash_attention_torch(q, k, v, causal=causal,
@@ -385,7 +290,7 @@ def _(q, k, v, causal, window):
 def _setup_context(ctx, inputs, output):
     q, k, v, causal, window = inputs
     ctx.save_for_backward(q, k, v)
-    ctx.causal, ctx.window = causal, window
+    ctx.causal, ctx.window, ctx.scale = causal, window, None
 
 
 flash_attention_op.register_autograd(_backward_op,
@@ -399,7 +304,7 @@ def flash_mla_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card, the plain version on the CPU."""
     q, k, v = (t.contiguous() for t in (q, k, v))
     _check(q, k, v)
-    if _on_card(q):
+    if native.route(q) == native.CUDA:
         return _launch(q, k, v, causal, 0, scale)
     return flash_attention_torch(q, k, v, causal=causal,
                                  scale=scale).contiguous()
@@ -435,22 +340,10 @@ def _register_formulas() -> None:
 
     if not torch.distributed.is_available():
         return
-    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
-
-    # replicated, sharded over the batch, or over the heads where both
-    # head counts divide every mesh dim (a rank holds whole GQA groups)
-    def _sharding(q, k, v, causal, window_or_scale):
-        rules = [([Replicate()], [Replicate()] * 3 + [None, None]),
-                 ([Shard(0)], [Shard(0)] * 3 + [None, None])]
-        n = max(q.mesh.shape)
-        if q.shape[2] % n == 0 and k.shape[2] % n == 0:
-            rules.append(([Shard(2)], [Shard(2)] * 3 + [None, None]))
-        return rules
-
     for op in (torch.ops.repro_torch.flash_attention.default,
                torch.ops.repro_torch.flash_mla.default):
-        register_sharding(op)(_sharding)
+        register_sharding(op)(native.head_sharding)
 
 
 _register_formulas()

@@ -16,9 +16,9 @@ The wrappers check dtype, shape, contiguity and device first.
 
 ``LAUNCHES`` counts kernel launches (one per wrapper call that reached
 the kernel), so a run can show that its main path went through it.  The
-serving plane launches from several threads of one process at once, so
-the count and the first load of the library are guarded by a lock: the
-count is exact, and the library is built and loaded once.
+serving plane launches from several threads of one process at once: a
+lock guards the count, which is exact, and the library is built and
+loaded once (``native.Library``).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import build
+from repro_torch.kernels import native
 from repro_torch.kernels.iou_matrix.ref import (iou_matrix_ragged_torch,
                                                 ragged_out_offsets)
 
@@ -47,56 +47,17 @@ BLOCKS_PER_SM = 8
 MAX_PER_THREAD = 16
 
 LAUNCHES = 0
-_LIB = None
-_SMS: dict = {}
 _LOCK = threading.Lock()
+
+LIB = native.Library(SOURCE, "iou_matrix",
+                     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                     + [ctypes.c_int], entry="iou_matrix_ragged_launch")
 
 
 def reset_launches() -> None:
     global LAUNCHES
     with _LOCK:
         LAUNCHES = 0
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library (built and loaded at first use, once,
-    whichever thread gets there first)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = build.load(SOURCE)
-        lib.iou_matrix_ragged_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.iou_matrix_ragged_launch.restype = ctypes.c_int
-        lib.iou_matrix_error_string.argtypes = [ctypes.c_int]
-        lib.iou_matrix_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
-def _is_cuda(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
-
-
-def _current_stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _on_device(device: torch.device):
-    return torch.cuda.device(device)
-
-
-def _sm_count(device: torch.device) -> int:
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]
 
 
 def per_thread(total: int, sms: int) -> int:
@@ -106,19 +67,15 @@ def per_thread(total: int, sms: int) -> int:
     return int(min(MAX_PER_THREAD, max(1, -(-total // wave))))
 
 
-def _check(t: torch.Tensor, name: str, ndim: int) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.dim() != ndim or t.shape[-1] != 4:
-        raise ValueError(f"{name} must have shape "
-                         f"{'(B, n, 4)' if ndim == 3 else '(n, 4)'}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} lies on unsupported device {t.device}")
+def _check(a: torch.Tensor, b: torch.Tensor, ndim: int) -> None:
+    """Boxes ``(n, 4)`` (``(B, n, 4)`` where ``ndim`` is 3), float32,
+    contiguous, on one device."""
+    native.check((a, "a", ndim), (b, "b", ndim))
+    for t, name in ((a, "a"), (b, "b")):
+        if t.shape[-1] != 4:
+            raise ValueError(f"{name} must have shape "
+                             f"{'(B, n, 4)' if ndim == 3 else '(n, 4)'}, "
+                             f"got {tuple(t.shape)}")
 
 
 def _check_offsets(t: torch.Tensor, name: str, length: int) -> None:
@@ -147,8 +104,7 @@ def iou_matrix_ragged(a: torch.Tensor, b: torch.Tensor,
     last entry ``total`` may be passed where the caller has them; else
     they are computed here (on a card that reads the total back).  The
     offsets are trusted: the kernel does not check them."""
-    _check(a, "a", 2)
-    _check(b, "b", 2)
+    _check(a, b, 2)
     _check_offsets(a_off, "a_off", -1)
     _check_offsets(b_off, "b_off", a_off.shape[0])
     if out_off is None:
@@ -160,7 +116,7 @@ def iou_matrix_ragged(a: torch.Tensor, b: torch.Tensor,
                          f"{[str(t.device) for t in tensors]}")
     if total is None:
         total = int(out_off[-1])
-    if not _is_cuda(a):
+    if native.route(a) != native.CUDA:
         return iou_matrix_ragged_torch(a, b, a_off, b_off, out_off, total)
     return _launch(a.device, a.data_ptr(), b.data_ptr(), a_off.data_ptr(),
                    b_off.data_ptr(), out_off.data_ptr(),
@@ -174,19 +130,9 @@ def _launch(device: torch.device, a: int, b: int, a_off: int, b_off: int,
     out = torch.empty((total,), dtype=torch.float32, device=device)
     if total == 0:
         return out
-    for ptr, name in ((a, "a"), (b, "b")):
-        if ptr % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
-    lib = _library()
-    with _on_device(device):
-        err = lib.iou_matrix_ragged_launch(
-            a, b, a_off, b_off, out_off, out.data_ptr(), batch, total,
-            per_thread(total, _sm_count(device)), _current_stream(device))
-    if err:
-        msg = lib.iou_matrix_error_string(err)
-        raise RuntimeError(
-            f"iou_matrix kernel launch failed: CUDA error {err} "
-            f"({msg.decode() if msg else 'unknown'})")
+    native.aligned(a=a, b=b)
+    LIB.call(device, a, b, a_off, b_off, out_off, out, batch, total,
+             per_thread(total, native.sm_count(device)))
     with _LOCK:
         LAUNCHES += 1
     return out
@@ -202,12 +148,9 @@ def uniform_offsets(B: int, M: int, N: int) -> np.ndarray:
 def _uniform(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(B, M, 4) x (B, N, 4) -> (B, M, N) through the ragged kernel, the
     uniform offsets built on the host and sent in one copy."""
-    if b.device != a.device:
-        raise ValueError(f"boxes on different devices: {a.device}, "
-                         f"{b.device}")
     B, M, N = a.shape[0], a.shape[1], b.shape[1]
     offs = torch.from_numpy(uniform_offsets(B, M, N)).to(a.device)
-    if not _is_cuda(a):
+    if native.route(a) != native.CUDA:
         return iou_matrix_ragged_torch(
             a.reshape(B * M, 4), b.reshape(B * N, 4), offs[0], offs[1],
             offs[2], B * M * N).view(B, M, N)
@@ -219,8 +162,7 @@ def _uniform(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def iou_matrix_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(B, M, 4) x (B, N, 4) -> (B, M, N) float32 IoU, one launch."""
-    _check(a, "a", 3)
-    _check(b, "b", 3)
+    _check(a, b, 3)
     if a.shape[0] != b.shape[0]:
         raise ValueError(f"batch sizes differ: {a.shape[0]} vs {b.shape[0]}")
     return _uniform(a, b)
@@ -228,8 +170,7 @@ def iou_matrix_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def iou_matrix_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, 4) x (N, 4) -> (M, N) float32 IoU, one launch."""
-    _check(a, "a", 2)
-    _check(b, "b", 2)
+    _check(a, b, 2)
     return _uniform(a[None], b[None])[0]
 
 
@@ -243,7 +184,7 @@ def iou_matrix_numpy(a: np.ndarray, b: np.ndarray,
     M, N = len(a), len(b)
     offs = uniform_offsets(1, M, N)
     buf = _to_device([a, b], offs, device)
-    if not _is_cuda(buf):
+    if native.route(buf) != native.CUDA:
         t = torch.from_numpy
         return iou_matrix_ragged_torch(t(a), t(b), *t(offs), M * N
                                        ).numpy().reshape(M, N)

@@ -26,19 +26,20 @@ uses it, the final state (the reference trains through the plain
 plain version on the card.  A call that needs no gradient (serving, under
 ``no_grad``) launches the kernels directly.
 
-Sharded and fake tensors: a ``DTensor`` (``launch/sharding.py``) or a
-fake tensor (the dry run of ``launch/dryrun.py``) goes through the custom
-op ``torch.ops.repro_torch.ssd_scan`` instead: the call above on the
-local tensors (the kernels for CUDA shards, made contiguous first; the
-plain version for CPU ones), a fake implementation that gives ``y`` and
-the final state's shapes and launches nothing, ``SSDScan``'s backward as
-its autograd formula (on each rank's local shards for DTensors,
-``_backward_op``), ``launch_cost``'s FLOP formula, and a sharding
-rule over one placement per mesh dimension: replicated, sharded over
-the batch (every input but ``A``), or sharded over the heads ``nh``
-(x, dt, ``A``, the initial and final states and ``y``; B and C, shared
-by the heads, replicated) where ``nh`` divides every mesh dimension.  A
-plain tensor keeps the route above.
+Sharded and fake tensors (``native.route``): a ``DTensor``
+(``launch/sharding.py``) or a fake tensor (the dry run of
+``launch/dryrun.py``) goes through the custom op
+``torch.ops.repro_torch.ssd_scan`` instead: the call above on the local
+tensors (the kernels for CUDA shards, made contiguous first; the plain
+version for CPU ones), a fake implementation that gives ``y`` and the
+final state's shapes and launches nothing, ``SSDScan``'s backward as its
+autograd formula (on each rank's local shards for DTensors,
+``_backward_op``), ``launch_cost``'s FLOP formula, and a sharding rule
+over one placement per mesh dimension: replicated, sharded over the
+batch (every input but ``A``), or sharded over the heads ``nh`` (x, dt,
+``A``, the initial and final states and ``y``; B and C, shared by the
+heads, replicated) where ``nh`` divides every mesh dimension.  A plain
+tensor keeps the route above.
 """
 from __future__ import annotations
 
@@ -49,10 +50,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.device import is_dtensor, is_sharded_or_fake
-from repro_torch.kernels import build
+from repro_torch.device import is_dtensor
+from repro_torch.kernels import native
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-from repro_torch.obs.tracing import profile_range
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 # (head dim, state size) values the kernel is instantiated for
@@ -65,7 +65,9 @@ BACKWARD_RANGE = "plain_ssd_backward"     # profiler range of the backward
 LAUNCHES = 0
 FLOPS = 0                       # of the calls counted in LAUNCHES
 BYTES = 0
-_LIB = None
+
+LIB = native.Library(SOURCE, "ssd_scan",
+                     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6)
 
 
 def reset_launches() -> None:
@@ -92,40 +94,13 @@ def launch_cost(B: int, S: int, nh: int, hd: int, N: int, Q: int,
     return flops, nbytes
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load(SOURCE)
-        lib.ssd_scan_launch.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.ssd_scan_launch.restype = ctypes.c_int
-        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
-        lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def _check(xh, dt, A, Bmat, Cmat, chunk, initial_state, *,
            contiguous: bool = True) -> int:
     named = [(xh, "xh", 4), (dt, "dt", 3), (A, "A", 1), (Bmat, "Bmat", 3),
              (Cmat, "Cmat", 3)]
     if initial_state is not None:
         named.append((initial_state, "initial_state", 4))
-    for t, name, ndim in named:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != ndim:
-            raise ValueError(f"{name} must be {ndim}-D, got "
-                             f"{tuple(t.shape)}")
-        if contiguous and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != xh.device:
-            raise ValueError(f"{name} lies on {t.device}, xh on {xh.device}")
-    if xh.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {xh.device}")
+    native.check(*named, contiguous=contiguous)
     B, S, nh, hd = xh.shape
     N = Bmat.shape[-1]
     want = {"dt": (B, S, nh), "A": (nh,), "Bmat": (B, S, N),
@@ -159,28 +134,6 @@ def scratch(B: int, S: int, nh: int, hd: int, N: int, Q: int,
             empty(B, NC, nh, hd, N))
 
 
-def _kernel(xh, dt, A, Bmat, Cmat, Q, initial_state, y, final) -> None:
-    """One call of the five CUDA kernels on the current stream; raises on
-    a CUDA error."""
-    B, S, nh, hd = xh.shape
-    N = Bmat.shape[-1]
-    lib = _library()
-    work = scratch(B, S, nh, hd, N, Q, xh.device)
-    with torch.cuda.device(xh.device):
-        err = lib.ssd_scan_launch(
-            xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
-            Cmat.data_ptr(),
-            initial_state.data_ptr() if initial_state is not None else None,
-            y.data_ptr(), final.data_ptr(), *(w.data_ptr() for w in work),
-            B, S, nh, hd, N, Q,
-            torch.cuda.current_stream(xh.device).cuda_stream)
-    if err:
-        msg = lib.ssd_scan_error_string(err)
-        raise RuntimeError(
-            f"ssd_scan kernel launch failed: CUDA error {err} "
-            f"({msg.decode() if msg else 'unknown'})")
-
-
 def _launch(xh, dt, A, Bmat, Cmat, Q, initial_state):
     global LAUNCHES, FLOPS, BYTES
     B, S, nh, hd = xh.shape
@@ -201,14 +154,9 @@ def _launch(xh, dt, A, Bmat, Cmat, Q, initial_state):
         else:
             final.copy_(initial_state)
         return y, final
-    tensors = [(xh, "xh"), (Bmat, "Bmat"), (Cmat, "Cmat")]
-    if initial_state is not None:
-        tensors.append((initial_state, "initial_state"))
-    for t, name in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
-                             f"copies)")
-    _kernel(xh, dt, A, Bmat, Cmat, Q, initial_state, y, final)
+    native.aligned(xh=xh, Bmat=Bmat, Cmat=Cmat, initial_state=initial_state)
+    LIB.call(xh.device, xh, dt, A, Bmat, Cmat, initial_state, y, final,
+             *scratch(B, S, nh, hd, N, Q, xh.device), B, S, nh, hd, N, Q)
     LAUNCHES += 1
     flops, nbytes = launch_cost(B, S, nh, hd, N, Q,
                                 initial_state is not None)
@@ -238,27 +186,17 @@ class SSDScan(torch.autograd.Function):
 def _backward(ctx, dy, dfinal):
     """The plain version recomputed on the saved inputs and differentiated
     through the outputs that received a gradient (``SSDScan``)."""
-    need = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
-    res = _plain_grads(ctx.saved_tensors, dy, dfinal, need, ctx.Q)
+    res = _recompute(ctx, ctx.saved_tensors, dy, dfinal)
     return (*res[:5], None, res[5])
 
 
-def _plain_grads(saved, dy, dfinal, need, Q: int):
-    # the range lets a profile read the recompute's device time apart
-    with torch.enable_grad(), profile_range(BACKWARD_RANGE):
-        ins = [None if t is None else t.detach().requires_grad_(n)
-               for t, n in zip(saved, need)]
-        y, final = ssd_chunked(*ins[:5], Q, initial_state=ins[5])
-        outs = [(o, g) for o, g in ((y, dy), (final, dfinal))
-                if g is not None]
-        wrt = [t for t in ins if t is not None and t.requires_grad]
-        if not (outs and wrt):
-            return (None,) * 6
-        grads = iter(torch.autograd.grad(
-            [o for o, _ in outs], wrt, [g for _, g in outs],
-            allow_unused=True))
-    return tuple(next(grads) if t is not None and t.requires_grad else None
-                 for t in ins)
+def _recompute(ctx, saved, dy, dfinal):
+    def plain(xh, dt, A, Bmat, Cmat, initial_state):
+        return ssd_chunked(xh, dt, A, Bmat, Cmat, ctx.Q,
+                           initial_state=initial_state)
+    need = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
+    return native.plain_grads(plain, saved, (dy, dfinal), need,
+                              BACKWARD_RANGE)
 
 
 # the custom op's layouts on one mesh dim, by input (xh, dt, A, Bmat, Cmat,
@@ -281,7 +219,6 @@ def _backward_op(ctx, dy, dfinal):
     before they are returned."""
     saved = ctx.saved_tensors
     xh = saved[0]
-    need = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
     if not is_dtensor(xh):
         return _backward(ctx, dy, dfinal)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -304,9 +241,8 @@ def _backward_op(ctx, dy, dfinal):
            for i, t in enumerate(saved)]
     outs = [None if g is None else g.redistribute(mesh, place(1, i))
             for i, g in enumerate((dy, dfinal))]
-    local = _plain_grads([None if t is None else t.to_local() for t in ins],
-                         *(None if g is None else g.to_local() for g in outs),
-                         need, ctx.Q)
+    local = _recompute(ctx, [None if t is None else t.to_local() for t in ins],
+                       *(None if g is None else g.to_local() for g in outs))
     res = [None if lg is None else DTensor.from_local(
         lg.contiguous(), mesh, place(2, i), run_check=False,
         shape=ins[i].shape, stride=ins[i].stride()) for i, lg in
@@ -320,29 +256,26 @@ def _backward_op(ctx, dy, dfinal):
     return (*res[:5], None, res[5])
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
-
-
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, chunk: int,
              initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y (B,S,nh,hd), final_state (B,nh,hd,N))."""
-    sharded = is_sharded_or_fake(xh, dt, A, Bmat, Cmat, initial_state)
+    case = native.route(xh, dt, A, Bmat, Cmat, initial_state)
     Q = _check(xh, dt, A, Bmat, Cmat, chunk, initial_state,
-               contiguous=not sharded)
-    if sharded:
-        return torch.ops.repro_torch.ssd_scan(xh, dt, A, Bmat, Cmat, Q,
-                                              initial_state)
-    if _on_card(xh):
+               contiguous=case in (native.CUDA, native.CPU))
+    if case == native.CPU:
+        return ssd_chunked(xh, dt, A, Bmat, Cmat, chunk,
+                           initial_state=initial_state)
+    if case == native.CUDA:
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad
                 for t in (xh, dt, A, Bmat, Cmat, initial_state)):
             return SSDScan.apply(xh, dt, A, Bmat, Cmat, Q, initial_state)
         return _launch(xh, dt, A, Bmat, Cmat, Q, initial_state)
-    return ssd_chunked(xh, dt, A, Bmat, Cmat, chunk,
-                       initial_state=initial_state)
+    # a DTensor or a fake tensor: the custom op
+    return torch.ops.repro_torch.ssd_scan(xh, dt, A, Bmat, Cmat, Q,
+                                          initial_state)
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +293,7 @@ def ssd_scan_op(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if initial_state is not None:
         initial_state = initial_state.contiguous()
     _check(xh, dt, A, Bmat, Cmat, Q, initial_state)
-    if _on_card(xh):
+    if native.route(xh) == native.CUDA:
         return _launch(xh, dt, A, Bmat, Cmat, Q, initial_state)
     y, final = ssd_chunked(xh, dt, A, Bmat, Cmat, Q,
                            initial_state=initial_state)

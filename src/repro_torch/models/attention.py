@@ -64,8 +64,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
-from repro_torch.device import (einsum, is_dtensor, is_sharded_or_fake,
-                                local_range, relayout)
+from repro_torch.device import einsum, is_dtensor, local_range, relayout
+from repro_torch.kernels import native
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import sdpa
@@ -262,8 +262,6 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache_k: torch.Tensor,
     _write_slot(cache_k, slot, k[:, 0])
     _write_slot(cache_v, slot, v[:, 0])
     q = _q_for_cache(q, cache_k.shape[2])
-    if not is_sharded_or_fake(q):
-        q = q.contiguous()
     out = decode_ops.decode_attention(q, cache_k, cache_v, pos)
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, (cache_k, cache_v)
@@ -396,7 +394,7 @@ def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
         latent, k_rope = _mla_latent(p, x, m, positions)
         k_nope = (latent @ p["wk_b"]).reshape(B, S, H, nope)
         v = (latent @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
-    if flash_ops.reaches_kernel(x):
+    if native.route(x) in (native.CUDA, native.SHARDED_CUDA):
         with profile_range("mla.project"):
             q = torch.cat([q_nope, q_rope], dim=-1)
             del q_nope, q_rope

@@ -103,7 +103,7 @@ def load_kernel_if_used(cfg: Dict[str, object]) -> None:
     not once per shard) and in each shard before it reports ready."""
     if cfg["use_kernel"]:
         from repro_torch.kernels.iou_matrix import ops
-        ops._library()
+        ops.LIB.load()
 
 
 class ShardOpHandler:

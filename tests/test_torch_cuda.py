@@ -1215,6 +1215,7 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(dev, arch,
     exact arithmetic: noise on both); the same card
     gradients with the plain versions forced on the card; the step moves
     ``wq``/``wk``/``wv`` and the Mamba input projections."""
+    import kernel_stand_in
     from repro_torch.configs.base import get_arch
     from repro_torch.data.pipeline import synthetic_lm_batches
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1247,8 +1248,8 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(dev, arch,
     floor = 1e-3 * max(float(c.abs().max()) for c in gc_)
     for name, g, c in zip(names, gg, gc_):
         assert _rel(g.cpu(), c, floor) <= 1e-4, name
-    for mod in (fa, sd):                         # the plain versions,
-        monkeypatch.setattr(mod, "_on_card", lambda t: False)  # on the card
+    # the plain versions, on the card
+    kernel_stand_in.reroute(monkeypatch, kernel_stand_in.OFF_CARD)
     gp, _, _ = loss_and_grads(gpu, bg)
     monkeypatch.undo()
     moved = ("wq", "wk", "wv", "in_x", "in_z", "in_bc", "in_dt")

@@ -29,6 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+import kernel_stand_in  # noqa: E402
 from portbench import trace as bench_trace  # noqa: E402
 from portbench import work, work_decode  # noqa: E402
 from portbench.harness import metric_reader  # noqa: E402
@@ -186,14 +187,24 @@ def test_a_launchs_plan_does_not_move_with_pos(monkeypatch):
 
     def stand_in(q, ck, cv, out, part_acc, part_ml, pos, splits, chunk):
         seen.append((splits, chunk, part_acc is None, part_ml is None))
-    monkeypatch.setattr(ops, "_kernel", stand_in)
-    monkeypatch.setattr(ops, "_sm_count", lambda dev: 132)
+    kernel_stand_in.install(monkeypatch, decode_attention=launch(stand_in))
     q, ck, cv = _args(B=2, H=8, K=2, hd=128, W=300)
     for pos in (0, 1, 31, 32, 150, 299, 300, 1000):
         for ps in (pos, torch.tensor(pos)):
             ops._launch(q, ck, cv, ps)
     assert len(set(seen)) == 1 and seen[0][0] > 1
     assert seen[0][2:] == (False, False)
+
+
+def launch(kernel):
+    """``kernel(q, ck, cv, out, part_acc, part_ml, pos, splits, chunk)``
+    as the library's launch (``kernel_stand_in.py``), ``pos`` the tensor
+    or the int the call was given."""
+    def call(q, ck, cv, out, part_acc, part_ml, pos_t, pos_i, B, W, H, K,
+             hd, splits, chunk):
+        kernel(q, ck, cv, out, part_acc, part_ml,
+               pos_i if pos_t is None else pos_t, splits, chunk)
+    return call
 
 
 def replay_kernel(q, ck, cv, out, part_acc, part_ml, pos, splits, chunk):
@@ -241,8 +252,8 @@ def replay_kernel(q, ck, cv, out, part_acc, part_ml, pos, splits, chunk):
 @pytest.mark.parametrize("pos", [0, 7, 31, 32, 33, 95, 96, 150, 199, 200,
                                  450])
 def test_split_ranges_and_combine_give_the_plain_version(monkeypatch, pos):
-    monkeypatch.setattr(ops, "_kernel", replay_kernel)
-    monkeypatch.setattr(ops, "_sm_count", lambda dev: 132)
+    kernel_stand_in.install(monkeypatch,
+                            decode_attention=launch(replay_kernel))
     q, ck, cv = _args(B=2, H=8, K=2, hd=128, W=200)
     assert ops.split_plan(2, 2, 200, 132)[0] > 1
     got = ops._launch(q, ck, cv, pos)
@@ -257,9 +268,8 @@ def test_a_partial_launch_leaves_every_splits_partial(monkeypatch, pos):
     partials of the same keys (a negative position, which a rank whose
     range of W lies past the step sees, gives empty partials and
     launches nothing)."""
-    monkeypatch.setattr(ops, "_kernel", replay_kernel)
-    monkeypatch.setattr(ops, "_sm_count", lambda dev: 132)
-    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    kernel_stand_in.install(monkeypatch,
+                            decode_attention=launch(replay_kernel))
     q, ck, cv = _args(B=2, H=8, K=2, hd=128, W=200)
     before = ops.DECODE_LAUNCHES
     m, l, acc = ops._partials(q, ck, cv, pos)

@@ -31,6 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+import kernel_stand_in  # noqa: E402
 from portbench import weights as bench_weights  # noqa: E402
 from portbench.reference import mla_moe  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
@@ -336,14 +337,16 @@ def test_plain_flash_with_its_own_v_dim_and_scale_is_an_explicit_softmax(
 def mla_stand_in(monkeypatch):
     """Every tensor counts as on the card; the MLA launch writes the plain
     version's result into the kernel's output buffer, and records the
-    shapes and scale it was given."""
+    shapes and the scale (times log2(e), as the kernel takes it) it was
+    given."""
     calls = []
 
-    def kernel(q, k, v, out, causal, scale):
-        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape), scale))
-        out.copy_(flash_attention_torch(q, k, v, causal=causal, scale=scale))
-    monkeypatch.setattr(fa, "_on_card", lambda t: True)
-    monkeypatch.setattr(fa, "_mla_kernel", kernel)
+    def kernel(q, k, v, out, B, S, H, K, dk, dv, causal, scale_log2e):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                      scale_log2e))
+        out.copy_(flash_attention_torch(q, k, v, causal=bool(causal),
+                                        scale=scale_log2e / fa.LOG2E))
+    kernel_stand_in.install(monkeypatch, flash_mla=kernel)
     fa.reset_launches()
     yield calls
     fa.reset_launches()
@@ -363,11 +366,11 @@ def test_mlas_card_route_equals_the_einsum_route(mla_stand_in):
     assert fa.LAUNCHES == fa.MLA_LAUNCHES == cfg.num_layers
     m = cfg.mla
     assert mla_stand_in == [((2, 48, 4, 96), (2, 48, 4, 96), (2, 48, 4, 64),
-                             att._mla_scale(m))] * cfg.num_layers
+                             att._mla_scale(m) * fa.LOG2E)] * cfg.num_layers
     f, n = fa.launch_cost(2, 48, 4, 4, 96, True, 0, 64)
     assert (fa.FLOPS, fa.BYTES) == (cfg.num_layers * f, cfg.num_layers * n)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fa, "_on_card", lambda t: False)
+        kernel_stand_in.reroute(mp, {})
         want, wc = model.prefill({"tokens": toks}, MAX_LEN)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     # the first layer's latent cache is computed before any attention
@@ -387,7 +390,7 @@ def test_a_scale_is_taken_by_mlas_call_alone():
     with pytest.raises(ValueError, match="only by the MLA kernel"):
         fa.flash_attention(z, z, z, scale=0.1)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fa, "_on_card", lambda t: True)
+        kernel_stand_in.reroute(mp)
         with pytest.raises(ValueError, match="only by the MLA kernel"):
             fa.flash_attention(z, z, z, scale=0.1)
 

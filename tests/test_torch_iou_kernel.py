@@ -17,9 +17,11 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import kernel_stand_in  # noqa: E402
 from repro.ensemble.boxes import iou_matrix  # noqa: E402
 from repro.kernels.iou_matrix.kernel import iou_matrix_pallas  # noqa: E402
 from repro_torch.ensemble import pipeline as tpipe  # noqa: E402
+from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.iou_matrix import ops  # noqa: E402
 from repro_torch.kernels.iou_matrix.ref import iou_matrix_torch  # noqa: E402
 
@@ -130,26 +132,18 @@ def test_cpu_tensors_do_not_count_as_launches():
 
 
 def _pretend_cuda(monkeypatch):
-    """Route CPU tensors down the kernel path, as a CUDA tensor would go."""
-    monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
-    monkeypatch.setattr(ops, "_current_stream", lambda device: 0)
-    monkeypatch.setattr(ops, "_on_device", lambda device: _Null())
-    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
-
-
-class _Null:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
+    """Route CPU tensors down the kernel path, as a CUDA tensor would go,
+    on a card of 132 SMs."""
+    kernel_stand_in.reroute(monkeypatch)
+    monkeypatch.setattr(native, "sm_count", lambda device: 132)
 
 
 def test_kernel_path_propagates_build_errors(monkeypatch):
-    def broken_build():
+    def broken_build(source):
         raise RuntimeError("nvcc failed: simulated")
     _pretend_cuda(monkeypatch)
-    monkeypatch.setattr(ops, "_library", broken_build)
+    monkeypatch.setattr(ops.LIB, "_lib", None)
+    monkeypatch.setattr(native.build, "load", broken_build)
     a = torch.rand(5, 4)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         ops.iou_matrix_op(a, a)
@@ -159,22 +153,26 @@ def test_kernel_path_propagates_build_errors(monkeypatch):
 
 def test_kernel_path_propagates_launch_errors(monkeypatch):
     class FailingLib:
-        launches = 0
+        def __init__(self):
+            self.launches = 0
 
-        def iou_matrix_ragged_launch(self, *args):
-            FailingLib.launches += 1
-            return 209          # cudaErrorNoKernelImageForDevice
+            def launch(*args):
+                self.launches += 1
+                return 209          # cudaErrorNoKernelImageForDevice
 
-        def iou_matrix_error_string(self, code):
-            return b"no kernel image is available for execution"
+            def error_string(code):
+                return b"no kernel image is available for execution"
+            self.iou_matrix_ragged_launch = launch
+            self.iou_matrix_error_string = error_string
 
+    lib = FailingLib()
     _pretend_cuda(monkeypatch)
-    monkeypatch.setattr(ops, "_library", lambda: FailingLib())
+    kernel_stand_in.library(monkeypatch, lib, ops.LIB)
     ops.reset_launches()
     a = torch.rand(5, 4)
     with pytest.raises(RuntimeError, match="CUDA error 209"):
         ops.iou_matrix_op(a, a)
-    assert FailingLib.launches == 1
+    assert lib.launches == 1
     assert ops.LAUNCHES == 0
 
 

@@ -8,12 +8,11 @@ Pallas kernel in interpret mode vmapped over the padded batch, as the
 reference serves it (XLA's CPU backend contracts a product and a sum into a
 fused multiply-add there; see ``test_torch_iou_kernel.py``).  The kernel
 path of the wrappers (packing, offsets, the arguments of the launch, the
-split of the result) runs here too, against a stand-in library that
-computes the kernel's contract with numpy from the raw pointers.  The CUDA
-kernel itself is held to the plain ragged version by ``chip_smoke.py`` and
-``test_torch_cuda.py``.
+split of the result) runs here too, against a stand-in launch that
+computes the kernel's contract with numpy from the raw pointers
+(``kernel_stand_in.py``).  The CUDA kernel itself is held to the plain
+ragged version by ``chip_smoke.py`` and ``test_torch_cuda.py``.
 """
-import contextlib
 import ctypes
 
 import numpy as np
@@ -24,6 +23,7 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import kernel_stand_in  # noqa: E402
 from repro.ensemble import pipeline as rpipe  # noqa: E402
 from repro.ensemble.boxes import iou_matrix  # noqa: E402
 from repro.kernels.iou_matrix.kernel import iou_matrix_pallas  # noqa: E402
@@ -218,15 +218,15 @@ def _array(ptr, dtype, count):
 
 
 class NumpyKernel:
-    """The kernel's C interface on host memory: reads the packed batch
-    from the raw pointers the wrapper passes and writes each image's table
-    at its output offset, with the reference numpy ``iou_matrix``."""
+    """The kernel's launch on host memory: reads the packed batch from the
+    raw pointers the wrapper passes and writes each image's table at its
+    output offset, with the reference numpy ``iou_matrix``."""
 
     def __init__(self):
         self.calls = []
 
     def iou_matrix_ragged_launch(self, a, b, a_off, b_off, out_off, out,
-                                 batch, total, per_thread, stream):
+                                 batch, total, per_thread):
         self.calls.append({"batch": batch, "total": total,
                            "per_thread": per_thread})
         ao = _array(a_off, np.int64, batch + 1)
@@ -235,15 +235,11 @@ class NumpyKernel:
         assert oo[-1] == total
         av = _array(a, np.float32, 4 * int(ao[-1])).reshape(-1, 4)
         bv = _array(b, np.float32, 4 * int(bo[-1])).reshape(-1, 4)
-        ov = _array(out, np.float32, total)
+        ov = _array(out.data_ptr(), np.float32, total)
         for i in range(batch):
             x, y = av[ao[i]:ao[i + 1]], bv[bo[i]:bo[i + 1]]
             if len(x) and len(y):
                 ov[oo[i]:oo[i + 1]] = iou_matrix(x, y).ravel()
-        return 0
-
-    def iou_matrix_error_string(self, code):
-        return b"no error"
 
 
 SMS = 132        # the stand-in card's SMs
@@ -252,12 +248,8 @@ SMS = 132        # the stand-in card's SMs
 @pytest.fixture
 def stand_in(monkeypatch):
     lib = NumpyKernel()
-    monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
-    monkeypatch.setattr(ops, "_current_stream", lambda device: 0)
-    monkeypatch.setattr(ops, "_on_device",
-                        lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(ops, "_sm_count", lambda device: SMS)
-    monkeypatch.setattr(ops, "_library", lambda: lib)
+    kernel_stand_in.install(monkeypatch, sms=SMS,
+                            iou_matrix=lib.iou_matrix_ragged_launch)
     ops.reset_launches()
     return lib
 

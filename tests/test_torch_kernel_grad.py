@@ -2,7 +2,8 @@
 ``SSDScan``: the kernel's forward, a backward that differentiates the
 plain version) on the CPU, with the CUDA launch replaced by a stand-in
 that writes the plain version's result into the kernel's output buffers,
-as ``test_torch_iou_ragged.py`` stands in for the IoU library.
+as ``test_torch_iou_ragged.py`` stands in for the IoU library
+(``kernel_stand_in.py``).
 
 Checked here: outputs and gradients through the Function equal autograd
 of the plain version (the same arithmetic, so to float32 rounding of the
@@ -22,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import kernel_stand_in  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.data.pipeline import synthetic_lm_batches  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
@@ -39,18 +41,19 @@ RTOL, ATOL = 1e-6, 1e-7
 def stand_in(monkeypatch):
     """Every tensor counts as on the card; the launches write the plain
     versions' results into the wrappers' output buffers."""
-    def flash_kernel(q, k, v, out, causal, window):
-        out.copy_(flash_attention_torch(q, k, v, causal=causal,
+    def flash_kernel(q, k, v, out, B, S, H, K, hd, causal, window):
+        out.copy_(flash_attention_torch(q, k, v, causal=bool(causal),
                                         window=window))
 
-    def ssd_kernel(xh, dt, A, Bmat, Cmat, Q, init, y, final):
+    def ssd_kernel(xh, dt, A, Bmat, Cmat, init, y, final, *rest):
+        Q = rest[-1]
         wy, wf = ssd_chunked(xh, dt, A, Bmat, Cmat, Q, initial_state=init)
         y.copy_(wy)
         final.copy_(wf)
-    for mod, kernel in ((fa, flash_kernel), (sd, ssd_kernel)):
-        monkeypatch.setattr(mod, "_on_card", lambda t: True)
-        monkeypatch.setattr(mod, "_kernel", kernel)
-        mod.reset_launches()
+    kernel_stand_in.install(monkeypatch, flash_attention=flash_kernel,
+                            ssd_scan=ssd_kernel)
+    fa.reset_launches()
+    sd.reset_launches()
     yield
     fa.reset_launches()
     sd.reset_launches()
@@ -176,7 +179,8 @@ def test_ssd_gradient_of_some_inputs_and_without_grad(stand_in):
                                         ("mamba2-370m", False),
                                         ("zamba2-2.7b", True)])
 def test_train_step_gradients_go_through_the_kernel_functions(stand_in, arch,
-                                                              remat):
+                                                              remat,
+                                                              monkeypatch):
     """A reduced arch's loss gradients on the stand-in card equal the plain
     path's (the same model on the CPU); flash launches once per attention
     layer and SSD once per Mamba block a forward, twice with ``remat``
@@ -192,8 +196,7 @@ def test_train_step_gradients_go_through_the_kernel_functions(stand_in, arch,
         cfg.num_layers // (cfg.shared_attn_every or cfg.num_layers + 1)
     n_ssd = 0 if cfg.family == "dense" else cfg.num_layers
     assert (fa.LAUNCHES, sd.LAUNCHES) == (per * n_attn, per * n_ssd)
-    for mod in (fa, sd):
-        mod._on_card = lambda t: False             # the plain path
+    kernel_stand_in.reroute(monkeypatch, {})       # the plain path
     want, wloss, _ = loss_and_grads(model, batch, remat=remat)
     assert (fa.LAUNCHES, sd.LAUNCHES) == (per * n_attn, per * n_ssd)
     torch.testing.assert_close(loss, wloss, rtol=1e-6, atol=0)

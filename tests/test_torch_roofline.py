@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import kernel_stand_in  # noqa: E402
 from repro_torch.configs.base import ARCH_IDS, get_arch  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.roofline.analysis import (HW, model_flops,  # noqa: E402
@@ -76,10 +77,9 @@ def test_op_cost_adds_the_kernel_counters(monkeypatch):
     FLOPs and bytes are added from the wrapper's counters."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
 
-    def kernel(q, k, v, out, causal, window):
-        out.copy_(flash_attention_torch(q, k, v, causal=causal))
-    monkeypatch.setattr(fa, "_on_card", lambda t: True)
-    monkeypatch.setattr(fa, "_kernel", kernel)
+    def kernel(q, k, v, out, B, S, H, K, hd, causal, window):
+        out.copy_(flash_attention_torch(q, k, v, causal=bool(causal)))
+    kernel_stand_in.install(monkeypatch, flash_attention=kernel)
     q = torch.ones(1, 16, 2, 16)
     f, b = fa.launch_cost(1, 16, 2, 2, 16, True, 0)
     # the stand-in's own aten ops are seen too: take them away

@@ -27,6 +27,7 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 import jax  # noqa: E402
 
+import kernel_stand_in  # noqa: E402
 from repro.core import networks as jnets  # noqa: E402
 from repro.core.sac import SAC as JSAC, SACConfig as JSACConfig  # noqa: E402
 from repro.federation.env import ArmolEnv as JEnv  # noqa: E402
@@ -41,6 +42,7 @@ from repro_torch.ensemble.boxes import Detections  # noqa: E402
 from repro_torch.federation.env import ArmolEnv  # noqa: E402
 from repro_torch.federation.providers import default_providers  # noqa: E402
 from repro_torch.federation.traces import generate_traces  # noqa: E402
+from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.iou_matrix import ops  # noqa: E402
 from repro_torch.launch.obs_report import load_run  # noqa: E402
 from repro_torch.obs import Obs, read_serving_log  # noqa: E402
@@ -455,9 +457,9 @@ def test_scenario_pool_not_ported_yet():
 # -- the IoU kernel's first load --------------------------------------------
 
 def test_kernel_library_loads_once_from_many_threads(monkeypatch):
-    """Eight threads reach ``_library()`` at once; the stand-in loader
-    (slow, as a first build is) runs once and every thread gets its
-    library."""
+    """Eight threads reach the IoU library's first use (``LIB.load()``)
+    at once; the stand-in loader (slow, as a first build is) runs once and
+    every thread gets its library."""
     loads = []
 
     def slow_load(source):
@@ -466,14 +468,14 @@ def test_kernel_library_loads_once_from_many_threads(monkeypatch):
         fn = types.SimpleNamespace
         return fn(iou_matrix_ragged_launch=fn(), iou_matrix_error_string=fn())
 
-    monkeypatch.setattr(ops, "_LIB", None)
-    monkeypatch.setattr(ops.build, "load", slow_load)
+    monkeypatch.setattr(ops.LIB, "_lib", None)
+    monkeypatch.setattr(native.build, "load", slow_load)
     barrier = threading.Barrier(8)
     got = [None] * 8
 
     def first_use(k):
         barrier.wait()
-        got[k] = ops._library()
+        got[k] = ops.LIB.load()
 
     threads = [threading.Thread(target=first_use, args=(k,))
                for k in range(8)]
@@ -489,19 +491,9 @@ def test_launch_count_is_exact_under_many_threads(monkeypatch):
     """Sixteen threads (more than this machine's cores) launch through the
     wrapper at once, with the interpreter switching threads as often as
     it can: the count equals the launches, so none was lost."""
-    import contextlib
     import sys
 
-    class NoopKernel:
-        def iou_matrix_ragged_launch(self, *args):
-            return 0
-
-    lib = NoopKernel()
-    monkeypatch.setattr(ops, "_library", lambda: lib)
-    monkeypatch.setattr(ops, "_current_stream", lambda device: 0)
-    monkeypatch.setattr(ops, "_on_device",
-                        lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
+    kernel_stand_in.install(monkeypatch, iou_matrix=kernel_stand_in.noop)
     ops.reset_launches()
     threads_n, calls = 16, 400
     dev = torch.device("cpu")

@@ -137,6 +137,8 @@ def mla_card_route_case(mesh_shape):
     writes the plain version's result into the kernel's output (a
     stand-in for the kernel), so each layer's MLA goes through the custom
     op on each rank's head shard; held to the unsharded port's einsum."""
+    import kernel_stand_in
+    import pytest
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
     from repro_torch.models.model import Model
@@ -152,18 +154,15 @@ def mla_card_route_case(mesh_shape):
     want, _ = ref.prefill({"tokens": tokens}, 100)
     local = []
 
-    def kernel(q, k, v, out, causal, scale):
+    def kernel(q, k, v, out, B, S, H, K, dk, dv, causal, scale_log2e):
         local.append([list(t.shape) for t in (q, k, v)])
-        out.copy_(flash_attention_torch(q, k, v, causal=causal,
-                                        scale=scale))
-    kept = fa._on_card, fa._mla_kernel
-    fa._on_card, fa._mla_kernel = (lambda t: True), kernel
+        out.copy_(flash_attention_torch(q, k, v, causal=bool(causal),
+                                        scale=scale_log2e / fa.LOG2E))
     fa.reset_launches()
-    try:
+    with pytest.MonkeyPatch.context() as patch:
+        kernel_stand_in.install(patch, flash_mla=kernel)
         got, _ = model.prefill({"tokens": tokens}, 100)
         launches = fa.MLA_LAUNCHES
-    finally:
-        fa._on_card, fa._mla_kernel = kept
     return {"prefill_logits": _diff(got, want), "mla_launches": launches,
             "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
             "local_qkv": local}
@@ -178,7 +177,8 @@ def _decode_stand_in(log):
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention.ref import decode_partials_torch
 
-    def kernel(q, ck, cv, out, part_acc, part_ml, pos, splits, chunk):
+    def kernel(q, ck, cv, out, part_acc, part_ml, pos_t, pos, B, W, H, K,
+               hd, splits, chunk):
         log.append([list(q.shape), list(ck.shape), out is None])
         B, _, H, hd = q.shape
         K = ck.shape[2]
@@ -209,6 +209,8 @@ def decode_card_route_case(arch, mesh_shape, kv):
     axis, each rank's range of the cache sharded along W, whose partials
     the ranks merge.  Ten decode steps held to the unsharded port's plain
     decode."""
+    import kernel_stand_in
+    import pytest
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.models.model import Model
     get_arch, shd, make_host_mesh = _port()
@@ -231,18 +233,14 @@ def decode_card_route_case(arch, mesh_shape, kv):
         want.append(logits)
     _, cache = model.prefill({"tokens": tokens}, 100)
     log = []
-    kept = da._on_card, da._kernel, da._sm_count
-    da._on_card, da._kernel = (lambda t: True), _decode_stand_in(log)
-    da._sm_count = lambda dev: 132
     da.reset_launches()
-    try:
+    with pytest.MonkeyPatch.context() as patch:
+        kernel_stand_in.install(patch, decode_attention=_decode_stand_in(log))
         step = 0.0
         for tok, w in zip(steps, want):
             got, cache = model.decode_step(cache, tok)
             step = max(step, _diff(got, w))
         launches = da.DECODE_LAUNCHES
-    finally:
-        da._on_card, da._kernel, da._sm_count = kept
     return {"decode_logits": step, "launches": launches,
             "num_layers": cfg.num_layers, "steps": DECODE_STEPS,
             "cache_placements": str(cache["k"].placements),

@@ -31,6 +31,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from repro_torch.kernels import native
     from repro_torch.kernels.iou_matrix import ops
 
     dev = torch.device("cuda", 0)
@@ -38,7 +39,7 @@ def main() -> int:
                for label in cs.SERVE_PASSES}
     batches["1000x1000"] = [cs.rand_boxes(np.random.default_rng(2),
                                           (1000,))]
-    sms = ops._sm_count(dev)
+    sms = native.sm_count(dev)
     out = {"device": torch.cuda.get_device_name(0), "sms": sms}
     for label, boxes in batches.items():
         total = sum(len(b) ** 2 for b in boxes)
