@@ -928,10 +928,14 @@ def lm_breakdown(engine, reqs, dev, extra=None) -> dict:
     cuBLAS/CUTLASS GEMMs, everything else), the device time under the MoE
     dispatch and combine einsums (``models/moe.py``'s profiler range; their
     kernels are also counted in their group; a MoE model that shows none
-    fails), and the device's busy and idle share of the wall time.  Runs
+    fails), and the device's busy and idle share of the wall time; the
+    Mamba step's Python launches, ``mamba_per_step`` in the decode step
+    and none in the prefill, and the CUDA kernels the profiler saw of
+    them (two a call).  Runs
     after the counted run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.mamba_step import ops as ms
 
     batch = engine._batch(reqs, extra)
     model = engine.model
@@ -942,15 +946,17 @@ def lm_breakdown(engine, reqs, dev, extra=None) -> dict:
             ("prefill", lambda: model.prefill(batch, engine.max_len)),
             ("decode_step", lambda: model.decode_step(cache, cur))):
         torch.cuda.synchronize()
+        ms.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
-                  "other": 0.0}
-        n_kernels = 0
+        mamba_launches = ms.MAMBA_STEP_LAUNCHES
+        groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "mamba_step": 0.0,
+                  "gemm": 0.0, "other": 0.0}
+        n_kernels = mamba_kernels = 0
         # the range shows as a CPU op (device time of the kernels under
         # it) and, where the tracer records it, as a GPU annotation (its
         # span on the device), which is no kernel: never in a group
@@ -971,6 +977,9 @@ def lm_breakdown(engine, reqs, dev, extra=None) -> dict:
                 groups["flash_attention"] += us
             elif "ssd_scan_" in name:
                 groups["ssd_scan"] += us
+            elif "mamba_step_" in name:
+                groups["mamba_step"] += us
+                mamba_kernels += e.count
             elif "gemm" in name or "cutlass" in name:
                 groups["gemm"] += us
             else:
@@ -978,10 +987,22 @@ def lm_breakdown(engine, reqs, dev, extra=None) -> dict:
         if engine.cfg.moe is not None and not (moe_gpu_us or moe_cpu_us):
             raise AssertionError(f"{label}: the profiler shows no device "
                                  f"time under moe_dispatch_combine")
+        # the tracer can drop a few kernel records from one short window
+        # (mamba2's step once showed 92 of its 96), so the kernels are
+        # bounded here and counted exactly over phase 10's whole serve
+        want = mamba_per_step(engine.cfg) if label == "decode_step" else 0
+        if mamba_launches != want or mamba_kernels > 2 * want or \
+                (want and not mamba_kernels):
+            raise AssertionError(
+                f"{label}: {mamba_launches} Mamba step launches and "
+                f"{mamba_kernels} mamba_step CUDA kernels, expected {want} "
+                f"and up to {2 * want}")
         busy = sum(groups.values())
         out[label] = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
                       "device_idle_share": 1.0 - busy / 1e6 / wall
                       if busy > 0 else None, "kernels": n_kernels,
+                      "mamba_step_launches": mamba_launches,
+                      "mamba_step_kernels": mamba_kernels,
                       **{f"{k}_ms": v / 1e3 for k, v in groups.items()},
                       "moe_dispatch_combine_ms":
                           (moe_gpu_us or moe_cpu_us) / 1e3}
@@ -1340,6 +1361,123 @@ def ssd_at_serving_shape(run: dict, dev) -> dict:
     return entry
 
 
+# the Mamba-2 step of the zamba2 cells (portbench/workloads: B 48 decode,
+# B 16 long prompts; 80 heads of 64, N 64) and of mamba2-370m's serve in
+# phase 10 (B 8; 32 heads of 64, N 128): (B, nh, hd, N)
+MAMBA_BENCH_SHAPES = {"zamba2-decode": (48, 80, 64, 64),
+                      "zamba2-longprompt": (16, 80, 64, 64),
+                      "mamba2-370m": (8, 32, 64, 128)}
+# a read of this many bytes between timed launches evicts the state from
+# the 50 MB L2, as a decode step's other layers do (B 16's state, 21 MB,
+# stays there between back-to-back launches)
+MAMBA_FLUSH_BYTES = 256 * 2**20
+
+
+def mamba_step_at_benchmark_shapes(dev) -> dict:
+    """The Mamba-2 step kernel at each of MAMBA_BENCH_SHAPES: three steps
+    in a row through the wrapper (one launch each, the caches written in
+    place), each held to the plain version from the same caches within
+    the kernel's tolerance (``ref.ATOL`` + ``ref.RTOL`` |want| for the
+    state and both windows; ``ref.ATOL`` + ``ref.readout_terms`` for y),
+    with drawn A_log, D, dt_bias and conv biases;
+    then the launch timed by CUDA events and by the profiler (its two CUDA
+    kernels by name) beside the plain version and the bound: the larger of
+    the state read and written once, the windows, inputs, y and parameters
+    at the memory rate and ``launch_cost``'s flops at the CUDA-core rate,
+    which ``mamba_step_roofline`` divides by too; back to back (the state
+    may stay in L2) and cold (a MAMBA_FLUSH_BYTES read before each
+    launch)."""
+    import torch
+    from repro_torch.kernels.mamba_step import ops, ref
+    from repro_torch.kernels.mamba_step.ref import mamba_step_torch
+
+    out = {}
+    for cell, (B, nh, hd, N) in MAMBA_BENCH_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(B + N)
+        d_inner, d_bc = nh * hd, 2 * N
+
+        def r(*shape, scale=1.0, lo=None, hi=None):
+            if lo is not None:
+                return lo + (hi - lo) * torch.rand(*shape, generator=gen,
+                                                   device=dev)
+            return scale * torch.randn(*shape, generator=gen, device=dev)
+        args = [r(B, d_inner), r(B, d_bc), r(B, nh), r(B, nh, hd, N),
+                r(B, d_inner, 3), r(B, d_bc, 3), r(d_inner, 4, scale=0.5),
+                r(d_inner, scale=0.3), r(d_bc, 4, scale=0.5),
+                r(d_bc, scale=0.3), r(nh, lo=-4.0, hi=2.0),
+                r(nh, lo=0.0, hi=2.77), 1 + r(nh, scale=0.5)]
+        errs, launches = [], []
+        for step in range(3):
+            args[:3] = [torch.randn_like(a) for a in args[:3]]
+            want_y, (want_st, want_w) = mamba_step_torch(*args)
+            terms = ref.readout_terms(args, want_st)
+            ops.reset_launches()
+            y, _ = ops.mamba_step(*args)
+            torch.cuda.synchronize()
+            launches.append(ops.MAMBA_STEP_LAUNCHES)
+            if launches[-1] != 1:
+                raise AssertionError(f"mamba_step at {cell}: "
+                                     f"{launches[-1]} launches")
+            for name, got, want, allowed in (
+                    ("y", y, want_y, terms),
+                    ("state", args[3], want_st, ref.RTOL * want_st.abs()),
+                    ("conv_x", args[4], want_w[0],
+                     ref.RTOL * want_w[0].abs()),
+                    ("conv_bc", args[5], want_w[1],
+                     ref.RTOL * want_w[1].abs())):
+                gap = float(((got - want).abs() - allowed).max())
+                errs.append(float((got - want).abs().max()))
+                if gap > ref.ATOL:
+                    raise AssertionError(
+                        f"mamba_step {name} off by {errs[-1]} at {cell} "
+                        f"{(B, nh, hd, N)} step {step} (tolerance "
+                        f"{ref.ATOL} + {ref.RTOL} |want|; y: + N 2^-23 "
+                        f"sum_n |C[n] s[p, n]|)")
+        y, bc_out = args[0].new_empty(B, d_inner), args[1].new_empty(B, d_bc)
+
+        flush = torch.empty(MAMBA_FLUSH_BYTES // 4, device=dev)
+
+        def kernel():
+            ops.LIB.call(dev, *args, y, bc_out, B, nh, hd, N, 4)
+
+        def cold():
+            flush.sum()
+            kernel()
+
+        def plain():
+            mamba_step_torch(*args)
+        ms = cuda_ms(kernel, reps=20, inner=20, warmup=5)
+        plain_ms = cuda_ms(plain, reps=10, inner=5, warmup=2)
+        device_ms, per_call, by_name = kernel_device_ms_of(kernel,
+                                                           "mamba_step")
+        cold_ms, _, cold_by_name = kernel_device_ms_of(cold, "mamba_step")
+        if per_call != 2:
+            raise AssertionError(f"mamba_step at {cell}: {per_call} CUDA "
+                                 f"kernels a call ({by_name})")
+        plain_device_ms = kernel_device_ms_of(plain, "", calls=5)[0]
+        flops, nbytes = ops.launch_cost(B, nh, hd, N, 4)
+        hw = peaks()
+        bytes_ms = nbytes / hw.hbm_bw * 1e3
+        ops_ms = flops / hw.peak_flops * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        out[cell] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "cuda_launches_per_call": per_call, "device_ms_by_kernel":
+            by_name, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "flops": flops, "bytes": nbytes,
+            "roofline_pct": 100.0 * bound_ms / (device_ms or ms),
+            "cold_device_ms": cold_ms, "cold_device_ms_by_kernel":
+            cold_by_name, "cold_roofline_pct": 100.0 * bound_ms / (
+                cold_ms or ms),
+            "timed_shape": [B, nh, hd, N], "max_abs_err": max(errs),
+            "launches_by_step": launches}
+        del args, y, bc_out, flush
+        torch.cuda.empty_cache()
+    return out
+
+
 def bound_entry(ms, plain_ms, lib_ms, device_ms, per_call, mma_flops,
                 other_flops, f32_flops, nbytes, shape, err) -> dict:
     """Bounds of a kernel whose products (``mma_flops``) run in 3xTF32 on
@@ -1496,6 +1634,12 @@ def decode_per_step(cfg) -> int:
     return flash_per_prefill(cfg)
 
 
+def mamba_per_step(cfg) -> int:
+    """Mamba step calls of one decode step: one per Mamba layer (every
+    layer of an ssm arch, the Mamba blocks of a hybrid)."""
+    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
 def launch_counts(fa, sd) -> dict:
     """The launch counters by kernel: the GQA flash kernel, its MLA
     instance (``flash_mla_tc``, counted apart) and the SSD scan."""
@@ -1523,13 +1667,16 @@ def serve_family(arch: str, dev) -> dict:
     gates set to LIVE_GATE first).  Launch counters zeroed just before,
     read just after; the serve runs under the profiler (device activity
     only), which counts the decode-attention kernels it runs, one a
-    GQA layer and step, graph replays included; every step's logits
-    finite; the model freed by the caller."""
+    GQA layer and step, and the Mamba step's, two a Mamba layer and step
+    (``mamba_step_conv_bc``, ``mamba_step_state``), graph replays
+    included; every step's logits finite; the model freed by the
+    caller."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_step import ops as ms
     from repro_torch.kernels.ssd_scan import ops as sd
     from repro_torch.serving.engine import ServeEngine
 
@@ -1568,10 +1715,12 @@ def serve_family(arch: str, dev) -> dict:
         fa.reset_launches()
         sd.reset_launches()
         da.reset_launches()
+        ms.reset_launches()
         outs = engine.serve(reqs, seed=0, extra_inputs=extra)
         torch.cuda.synchronize()
         launches = launch_counts(fa, sd)
         decode_launches = da.DECODE_LAUNCHES
+        mamba_launches = ms.MAMBA_STEP_LAUNCHES
     engine._sample = sample
     st = dict(engine.last_stats)
     want = {"flash_attention": flash_per_prefill(cfg),
@@ -1583,18 +1732,25 @@ def serve_family(arch: str, dev) -> dict:
     # every decode step of the serve runs the decode kernel once a layer,
     # a replayed step too; Python launches it in the steps that ran
     # eagerly and in a capture (none where the warm-up's graph replays)
-    decode_kernels = sum(e.count for e in _device_events(prof.key_averages())
+    events = _device_events(prof.key_averages())
+    decode_kernels = sum(e.count for e in events
                          if "decode_attention_split" in e.key)
-    want_kernels = decode_per_step(cfg) * st["decode_steps"]
-    want_decode = decode_per_step(cfg) * (
-        st["decode_steps"] - st["graph_steps"] + st["graph_captures"])
-    if (decode_kernels, decode_launches) != (want_kernels, want_decode):
-        raise AssertionError(
-            f"{arch}: the serve ran {decode_kernels} decode_attention "
-            f"kernels and launched {decode_launches} from Python, expected "
-            f"{want_kernels} and {want_decode} ({st['decode_steps']} steps, "
-            f"{st['graph_steps']} replayed, {st['graph_captures']} "
-            f"captures)")
+    mamba_kernels = {k: sum(e.count for e in events if k in e.key)
+                     for k in ("mamba_step_state", "mamba_step_conv_bc")}
+    eager = st["decode_steps"] - st["graph_steps"] + st["graph_captures"]
+    for name, per_step, kernels, python in (
+            ("decode_attention", decode_per_step(cfg), [decode_kernels],
+             decode_launches),
+            ("mamba_step", mamba_per_step(cfg), list(mamba_kernels.values()),
+             mamba_launches)):
+        want_kernels = [per_step * st["decode_steps"]] * len(kernels)
+        if (kernels, python) != (want_kernels, per_step * eager):
+            raise AssertionError(
+                f"{arch}: the serve ran {kernels} {name} kernels and "
+                f"launched {python} from Python, expected {want_kernels} "
+                f"and {per_step * eager} ({st['decode_steps']} steps, "
+                f"{st['graph_steps']} replayed, {st['graph_captures']} "
+                f"captures)")
     toks = np.stack([o.tokens for o in outs])
     if not all(finite) or len(finite) != 16 or toks.shape != (8, 16) or \
             toks.min() < 0 or toks.max() >= cfg.vocab_size:
@@ -1615,6 +1771,8 @@ def serve_family(arch: str, dev) -> dict:
            "launches_per_prefill": launches,
            "decode_attention_kernels": decode_kernels,
            "decode_attention_launches": decode_launches,
+           "mamba_step_kernels": mamba_kernels,
+           "mamba_step_launches": mamba_launches,
            "decode_steps": st["decode_steps"],
            "graph_steps": st["graph_steps"],
            "card_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
@@ -1841,6 +1999,8 @@ def families_phase(dev) -> dict:
                 for k in ("flash_attention", "flash_mla", "ssd_scan")}
     launches["decode_attention"] = {
         arch: r["decode_attention_kernels"] for arch, r in runs.items()}
+    launches["mamba_step"] = {
+        arch: r["mamba_step_kernels"] for arch, r in runs.items()}
     log(f"[lm] phase 10 in {time.perf_counter() - t_phase:.1f}s")
     return {"runs": runs, "timed": timed, "breakdown": breakdown,
             "layers": layers, "launches": launches, "flash_errs": flash_errs,
@@ -4552,10 +4712,12 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.iou_matrix import ops
+    from repro_torch.kernels.mamba_step import ops as ms_ops
+    from repro_torch.kernels.mamba_step import ref as ms_ref
     from repro_torch.kernels.ssd_scan import ops as sd_ops
     t0 = time.perf_counter()
     libs = build.build_all([ops.SOURCE, fa_ops.SOURCE, fa_ops.MLA_SOURCE,
-                            sd_ops.SOURCE, da_ops.SOURCE])
+                            sd_ops.SOURCE, da_ops.SOURCE, ms_ops.SOURCE])
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f}s")
     for src, lib in libs.items():
         report = lib.with_suffix(".log")
@@ -4602,6 +4764,7 @@ def main() -> int:
     # 4. the LM served at full width; 5. one super-block against the CPU
     t0 = time.perf_counter()
     lm = lm_serve(dev)
+    lm_step = lm["breakdown"]["decode_step"]
     flash_t = flash_at_serving_shape(lm, dev)
     ssd_t = ssd_at_serving_shape(lm, dev)
     for name, t in (("flash_attention", flash_t), ("ssd_scan", ssd_t)):
@@ -4645,6 +4808,19 @@ def main() -> int:
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} "
             f"flops at the CUDA-core rate, {t['bytes']} bytes), "
             f"{t['roofline_pct']:.1f}% of it")
+    ms_by_cell = mamba_step_at_benchmark_shapes(dev)
+    for cell, t in ms_by_cell.items():
+        log(f"[kernels] mamba_step at the {cell} shape {t['timed_shape']} "
+            f"(B, nh, hd, N): max_abs_err {t['max_abs_err']:.3g} over 3 "
+            f"steps, launches by step {t['launches_by_step']}, kernel "
+            f"{t['ms']:.4f} ms (device "
+            f"{t['device_ms']} ms over {t['cuda_launches_per_call']} CUDA "
+            f"kernels per call: {json.dumps(t['device_ms_by_kernel'])}), "
+            f"plain {t['plain_ms']:.4f} ms (device {t['plain_device_ms']} "
+            f"ms), bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{t['flops']} flops at the CUDA-core rate, {t['bytes']} bytes),"
+            f" {t['roofline_pct']:.1f}% of it; cold (L2 flushed) device "
+            f"{t['cold_device_ms']} ms, {t['cold_roofline_pct']:.1f}%")
     dec_t = dec_by_cell["olmoe-decode"]
     cmp = lm_vs_cpu(dev)
     log(f"[lm] phases 4-5 in {time.perf_counter() - t0:.1f}s")
@@ -4842,6 +5018,32 @@ def main() -> int:
             "timed_shape", "splits", "max_abs_err_by_pos", "ms",
             "device_ms", "plain_ms", "bound_ms", "roofline_pct")}
             for cell, t in dec_by_cell.items()},
+    })
+    ms_t = ms_by_cell["zamba2-decode"]
+    kernels.append({
+        "name": "mamba_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_step/csrc/mamba_step.cu",
+        "replaces": "none: the reference's one-token Mamba-2 step is plain "
+                    "jnp (src/repro/models/ssm.py mamba_decode)",
+        # Python launches: the checks' three calls a shape, the profiled
+        # zamba2 decode step's; CUDA kernels (two a call): those phase
+        # 10's served decodes ran, graph replays included
+        "launches": 3 * len(ms_by_cell) + lm_step["mamba_step_launches"],
+        "launches_zamba2_decode_step": lm_step["mamba_step_launches"],
+        "cuda_kernels_zamba2_decode_step": lm_step["mamba_step_kernels"],
+        "cuda_kernels_by_arch": fam["launches"]["mamba_step"],
+        "max_abs_err": max(t["max_abs_err"] for t in ms_by_cell.values()),
+        "tolerance": f"abs {ms_ref.ATOL} + {ms_ref.RTOL} |want|; y "
+                     f"{ms_ref.ATOL} + N 2^-23 sum_n |C[n] s[p, n]|",
+        **{k: ms_t[k] for k in (
+            "ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+            "roofline_pct", "cold_roofline_pct", "library_ms", "device_ms",
+            "device_ms_by_kernel", "timed_shape",
+            "cuda_launches_per_call")},
+        "by_cell": {cell: {k: t[k] for k in (
+            "timed_shape", "ms", "device_ms", "plain_ms", "bound_ms",
+            "roofline_pct", "cold_device_ms", "cold_roofline_pct")}
+            for cell, t in ms_by_cell.items()},
     })
     log(f"[lm] summary: {json.dumps({k: v for k, v in lm.items() if k not in ('flash_kwargs', 'ssd_kwargs')})} "
         f"card-vs-cpu logits max_abs_err {cmp['max_abs_err']:.3g}")

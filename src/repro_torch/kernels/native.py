@@ -29,6 +29,12 @@ to an implementation (a custom op runs the kernel on a card's shards and
   FAKE          custom op               ref.py, device.einsum   einsum
 
   [1] through its ``autograd.Function`` where a gradient is needed.
+
+``mamba_step`` takes its kernel on CUDA, which writes the caches in
+place, and on SHARDED_CUDA on each rank's shard (split as the state is,
+by the wrapper itself: the caches are written in place, which a custom
+op's functional output would not do); its ``ref.py`` (through
+``device.einsum``) on CPU, SHARDED_CPU and FAKE.
 """
 from __future__ import annotations
 

@@ -254,7 +254,8 @@ def _mamba_block(lp, x, cfg: ArchConfig):
 
 def _mamba_step(lp, x, caches, cfg: ArchConfig, *, decode: bool):
     """Pre-norm Mamba block with its residual, over the full sequence or
-    one token; writes the layer's (ssm, conv_x, conv_bc) caches in place."""
+    one token; writes the layer's (ssm, conv_x, conv_bc) caches in place
+    (a decode step on the card writes them itself: nothing to copy)."""
     st, cx, cbc = caches
     with profile_range("model.mamba"):
         h = apply_norm(lp["norm"], x, cfg.norm)
@@ -265,7 +266,8 @@ def _mamba_step(lp, x, caches, cfg: ArchConfig, *, decode: bool):
             y, (st1, (cx1, cbc1)) = ssm_lib.mamba_forward(
                 lp["mamba"], h, cfg, return_state=True)
         for dst, src in zip(caches, (st1, cx1, cbc1)):
-            dst.copy_(src)
+            if src is not dst:
+                dst.copy_(src)
         return x + settle(y)
 
 

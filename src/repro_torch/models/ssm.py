@@ -9,8 +9,10 @@ Shapes (G = 1 state group), as in the reference's ``models/ssm.py``:
 The input projection is split per segment (z, x, BC, dt) and the depthwise
 conv likewise (conv over x, conv over BC), which is the reference's layout.
 The chunk scan of the prefill goes through the SSD kernel
-(``kernels.ssd_scan.ops``); the one-token decode stays plain PyTorch, as in
-the reference.
+(``kernels.ssd_scan.ops``); the one-token decode's step after its
+projections (both conv steps, the state update and the readout) through
+the Mamba step kernel (``kernels.mamba_step.ops``), which on the card
+updates the caches in place.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import einsum, is_dtensor
+from repro_torch.device import is_dtensor
+from repro_torch.kernels.mamba_step import ops as step_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import (F32, dense_init, gated_rmsnorm,
                                        init_norm)
@@ -137,11 +140,11 @@ def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
 
 def mamba_decode(p, x: torch.Tensor, state: Tuple, cfg: ArchConfig):
     """One-token decode. x: (B,1,d); state = (ssm_state, (conv_x, conv_bc)).
-    Returns (y, new state); the inputs are not modified."""
-    ssm = cfg.ssm
-    d_inner, nh, d_bc = dims(cfg)
-    hd = ssm.head_dim
-    N = ssm.d_state
+    Returns (y, state after the step).  The step after the projections is
+    ``kernels.mamba_step``: on the card it writes the given caches in place
+    and returns them; elsewhere it returns new tensors and modifies no
+    input."""
+    d_inner = dims(cfg)[0]
     B = x.shape[0]
     ssm_state, (cx, cbc) = state            # (B,nh,hd,N), (B,d_inner,3), ...
     xt = x[:, 0, :]
@@ -149,25 +152,9 @@ def mamba_decode(p, x: torch.Tensor, state: Tuple, cfg: ArchConfig):
     xr = xt @ p["in_x"]
     bc = xt @ p["in_bc"]
     dt = xt @ p["in_dt"]
-
-    def conv_step(prev, new, w, b):
-        win = torch.cat([prev, new[:, :, None]], dim=-1)
-        out = F.silu((win * w[None]).sum(dim=-1) + b)
-        return out, win[:, :, 1:]
-    xr, cx = conv_step(cx, xr, p["conv_x"], p["conv_x_b"])
-    bc, cbc = conv_step(cbc, bc, p["conv_bc"], p["conv_bc_b"])
-
-    xs = xr.reshape(B, nh, hd)
-    Bv = bc[:, :N].float()
-    Cv = bc[:, N:].float()
-    dtf = F.softplus(dt.float() + p["dt_bias"])      # (B,nh)
-    A = -torch.exp(p["A_log"])
-    decay = torch.exp(dtf * A)                        # (B,nh)
-    upd = (dtf[:, :, None, None] * Bv[:, None, None, :]
-           * xs.float()[:, :, :, None])
-    ssm_state = decay[:, :, None, None] * ssm_state + upd
-    y = einsum("bn,bhpn->bhp", Cv, ssm_state)
-    y = y + p["D"][None, :, None] * xs.float()
+    y, state = step_ops.mamba_step(
+        xr, bc, dt, ssm_state, cx, cbc, p["conv_x"], p["conv_x_b"],
+        p["conv_bc"], p["conv_bc_b"], p["dt_bias"], p["A_log"], p["D"])
     y = y.reshape(B, 1, d_inner).to(x.dtype)
     y = gated_rmsnorm(p["norm"], y, z[:, None, :])
-    return y @ p["out_proj"], (ssm_state, (cx, cbc))
+    return y @ p["out_proj"], state

@@ -15,6 +15,9 @@ tensors, then the ints; the stream is not passed):
 - ``decode_attention``: q, cache_k, cache_v, out, part_acc, part_ml, the
   position's tensor (or None), the int position, B, W, H, K, hd, splits,
   chunk;
+- ``mamba_step``: xr, bc, dt, state, conv_x, conv_bc, w_x, b_x, w_bc,
+  b_bc, dt_bias, A_log, D, y, the B‖C scratch, B, nh, hd, N, d_conv
+  (``mamba_step`` below writes the plain step into the kernel's outputs);
 - ``iou_matrix``: the addresses of a, b and the three offsets, out, the
   batch, the total and the outputs per thread.
 
@@ -29,6 +32,7 @@ import types
 import torch
 
 from repro_torch.kernels import native
+from repro_torch.kernels.mamba_step.ref import conv_step, mamba_step_torch
 
 ON_CARD = {native.CPU: native.CUDA, native.SHARDED_CPU: native.SHARDED_CUDA}
 OFF_CARD = {v: k for k, v in ON_CARD.items()}
@@ -59,6 +63,17 @@ def install(monkeypatch, sms: int = SMS, **kernels) -> None:
 
 def noop(*args) -> None:
     """A launch that does nothing."""
+
+
+def mamba_step(xr, bc, dt, state, conv_x, conv_bc, w_x, b_x, w_bc, b_bc,
+               dt_bias, A_log, D, y, bc_out, B, nh, hd, N, d_conv) -> None:
+    """The Mamba step kernel on the CPU: the plain step's outputs written
+    into the kernel's, B‖C's conv step into the scratch, y filled, the
+    state and both windows in place (by index, never by a ``copy_``)."""
+    bc_out[...] = conv_step(conv_bc, bc, w_bc, b_bc)[0]
+    y[...], (state[...], (conv_x[...], conv_bc[...])) = mamba_step_torch(
+        xr, bc, dt, state, conv_x, conv_bc, w_x, b_x, w_bc, b_bc, dt_bias,
+        A_log, D)
 
 
 def library(monkeypatch, cdll, *libs) -> None:

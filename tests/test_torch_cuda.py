@@ -521,6 +521,171 @@ def test_decode_attention_under_a_graph_equals_eager(dev):
             assert torch.equal(out, ops.decode_attention(q, k, v, p)), p
 
 
+# ---------------------------------------------------------------------------
+# the Mamba-2 one-token step kernel (kernels/mamba_step)
+# ---------------------------------------------------------------------------
+
+def mamba_leaves(nh, d_inner, d_bc, gen, dev):
+    """A_log, D, dt_bias and the conv biases drawn (the initialisers leave
+    them constant); one head's dt past softplus's threshold of 20."""
+    def u(n, lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+    dt_bias = u(nh, -4.0, 2.0)
+    dt_bias[-1] = 21.0
+    return {"A_log": u(nh, 0.0, float(np.log(16))),
+            "D": 1 + 0.5 * torch.randn(nh, generator=gen, device=dev),
+            "dt_bias": dt_bias,
+            "conv_x_b": 0.3 * torch.randn(d_inner, generator=gen, device=dev),
+            "conv_bc_b": 0.3 * torch.randn(d_bc, generator=gen, device=dev)}
+
+
+def mamba_inputs(B, nh, hd, N, seed, dev):
+    """The arguments of ``ops.mamba_step`` at (B, nh, hd, N), d_conv 4: a
+    non-zero state and conv windows, drawn leaves."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d_inner, d_bc = nh * hd, 2 * N
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+    leaves = mamba_leaves(nh, d_inner, d_bc, gen, dev)
+    return [r(B, d_inner), r(B, d_bc), r(B, nh), r(B, nh, hd, N),
+            r(B, d_inner, 3), r(B, d_bc, 3), r(d_inner, 4, scale=0.5),
+            leaves["conv_x_b"], r(d_bc, 4, scale=0.5), leaves["conv_bc_b"],
+            leaves["dt_bias"], leaves["A_log"], leaves["D"]]
+
+
+def mamba_close(got, want, terms=None):
+    """Within the kernel's tolerance (``ref.ATOL`` + ``ref.RTOL`` |want|),
+    or for y, given ``terms`` (``ref.readout_terms``), ``ref.ATOL`` +
+    terms."""
+    from repro_torch.kernels.mamba_step import ref
+    if terms is None:
+        torch.testing.assert_close(got, want, atol=ref.ATOL, rtol=ref.RTOL)
+        return
+    over = (got - want).abs() - ref.ATOL - terms
+    assert float(over.max()) <= 0, float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("B", [1, 16, 48])
+@pytest.mark.parametrize("nh,hd,N", [(80, 64, 64), (32, 64, 128),
+                                     (8, 32, 16)])
+def test_mamba_step_kernel_matches_plain(dev, nh, hd, N, B):
+    """Three steps in a row (new inputs each), each one launch that writes
+    the caches it was given and equals the plain version's y, state and
+    windows from the same caches; a decay 1% off misses the tolerance."""
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.kernels.mamba_step.ref import (mamba_step_torch,
+                                                    readout_terms)
+    args = mamba_inputs(B, nh, hd, N, B + N, dev)
+    caches = args[3:6]
+    for step in range(3):
+        if step:
+            args[:3] = [torch.randn_like(a) for a in args[:3]]
+        want_y, (want_st, (want_cx, want_cbc)) = mamba_step_torch(*args)
+        terms = readout_terms(args, want_st)
+        before = ops.MAMBA_STEP_LAUNCHES
+        y, (st, (cx, cbc)) = ops.mamba_step(*args)
+        torch.cuda.synchronize()
+        assert ops.MAMBA_STEP_LAUNCHES == before + 1
+        assert (st, cx, cbc) == tuple(caches)
+        mamba_close(y, want_y, terms)
+        for got, want in ((st, want_st), (cx, want_cx), (cbc, want_cbc)):
+            mamba_close(got, want)
+    off = mamba_step_torch(*args[:11], args[11] + 0.01, args[12])[1][0]
+    with pytest.raises(AssertionError):
+        mamba_close(off, mamba_step_torch(*args)[1][0])
+
+
+def test_mamba_step_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.mamba_step import ops
+    args = mamba_inputs(2, 4, 32, 32, 0, dev)
+    with pytest.raises(ValueError, match=r"\(32, 32, 4\)"):
+        ops.mamba_step(*args)
+    args = mamba_inputs(2, 4, 32, 16, 0, dev)
+    args[3] = args[3].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mamba_step(*args)
+
+
+def test_mamba_step_under_a_graph_equals_eager(dev):
+    """A captured step replayed three times equals three eager steps from
+    the same caches bit for bit: y after each, then the state and windows."""
+    from repro_torch.kernels.mamba_step import ops
+    args = mamba_inputs(48, 80, 64, 64, 1, dev)
+    eager = [a.clone() for a in args]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ops.mamba_step(*args)                       # the warm-up step
+    torch.cuda.current_stream(dev).wait_stream(side)
+    ops.mamba_step(*eager)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y, _ = ops.mamba_step(*args)
+    for _ in range(3):
+        graph.replay()
+        want, _ = ops.mamba_step(*eager)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+    for got, want in zip(args[3:6], eager[3:6]):
+        assert torch.equal(got, want)
+
+
+def test_reduced_hybrid_decode_holds_to_the_plain_route(dev, monkeypatch):
+    """Reduced zamba2, drawn leaves, on the card: prefill, then eight greedy
+    decode steps through the kernel, and again with the Mamba step on its
+    plain version (ATen on the card): the same tokens, logits within 1e-4,
+    one launch a Mamba layer and step.  The steps are eager (a plain dict
+    cache, fresh from each route's prefill: no graph) and run under the
+    profiler, which sees the kernel's two CUDA kernels a Mamba layer and
+    step on the kernel route and none on the plain one."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.kernels.mamba_step.ref import mamba_step_torch
+    from repro_torch.models import ssm
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    cfg = get_arch("zamba2-2.7b").reduced()
+    model = Model(cfg, device=dev, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    with torch.no_grad():
+        for blk in model.blocks:
+            d_inner, nh, d_bc = ssm.dims(cfg)
+            for k, v in mamba_leaves(nh, d_inner, d_bc, gen, dev).items():
+                blk["mamba"][k].copy_(v)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 64)))
+    runs = {}
+    for route in ("kernel", "plain"):
+        with monkeypatch.context() as m:
+            if route == "plain":
+                m.setattr(ops, "mamba_step",
+                          lambda *a: mamba_step_torch(*a))
+            logits, cache = model.prefill({"tokens": toks}, 80)
+            assert isinstance(cache, dict)
+            ops.reset_launches()
+            out = []
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(8):
+                    logits, cache = model.decode_step(
+                        cache, logits.argmax(-1)[:, None])
+                    out.append(logits.clone())
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = sum(e.count for e in events if "mamba_step" in e.key)
+            runs[route] = (out, ops.MAMBA_STEP_LAUNCHES, kernels,
+                           sum(e.count for e in events))
+    assert runs["kernel"][1:3] == (8 * cfg.num_layers, 16 * cfg.num_layers)
+    assert runs["plain"][1:3] == (0, 0)
+    assert runs["plain"][3] > runs["kernel"][3]     # ATen's launches
+    for g, w in zip(runs["kernel"][0], runs["plain"][0]):
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+        assert float((g - w).abs().max()) < 1e-4
+
+
 def test_reduced_zamba2_on_the_card_matches_the_cpu(dev):
     """Prefill and four greedy decode steps of the reduced model, on the
     card through both kernels and on the CPU through their plain versions,
@@ -1499,6 +1664,80 @@ def test_sharded_decode_runs_the_kernel(one_rank_mesh):
         assert da.DECODE_LAUNCHES == cfg.num_layers * len(steps)
         logits.append(torch.stack(out))
     torch.testing.assert_close(logits[1], logits[0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("spec", [(), ("data", None, None, None),
+                                  (None, "model", None, None)])
+def test_mamba_step_on_cuda_dtensors_runs_the_kernel(one_rank_mesh, spec):
+    """Replicated, row- or head-sharded caches (every argument laid out to
+    fit) on the one-rank mesh: one launch on the local shard, which writes
+    the DTensor caches in place (the step returns them), equal bit for bit
+    to the plain tensors' kernel call; y laid out as x."""
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.launch.sharding import P, distribute
+    dev = torch.device("cuda", 0)
+    args = mamba_inputs(4, 8, 32, 16, 3, dev)
+    want_args = [a.clone() for a in args]
+    want_y, _ = ops.mamba_step(*want_args)
+    rows, heads = "data" in spec, "model" in spec
+    specs = []
+    for i, a in enumerate(args):
+        dims = [None] * a.dim()
+        if rows and i < 6:
+            dims[0] = "data"
+        elif heads and i in (0, 2, 3, 4):
+            dims[1] = "model"
+        elif heads and i in (6, 7, 10, 11, 12):
+            dims[0] = "model"
+        specs.append(P(*dims))
+    sharded = [distribute(a, one_rank_mesh, sp)
+               for a, sp in zip(args, specs)]
+    before = ops.MAMBA_STEP_LAUNCHES
+    y, (st, (cx, cbc)) = ops.mamba_step(*sharded)
+    torch.cuda.synchronize()
+    assert ops.MAMBA_STEP_LAUNCHES == before + 1
+    assert (st, cx, cbc) == tuple(sharded[3:6])
+    assert y.placements == sharded[0].placements
+    assert torch.equal(_full(y), want_y)
+    for got, want in zip(sharded[3:6], want_args[3:6]):
+        assert torch.equal(_full(got), want)
+
+
+def test_sharded_mamba_decode_runs_the_kernel(one_rank_mesh):
+    """Reduced mamba2-370m, plain and ``shard_model`` (tp) from one seed on
+    the one-rank mesh: each decode step launches the Mamba step kernel
+    once a layer on both, and the logits and caches agree."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import pin_float32
+    pin_float32()
+    dev = torch.device("cuda", 0)
+    cfg = get_arch("mamba2-370m").reduced()
+    plain = Model(cfg, device=dev, seed=0)
+    sharded = shd.shard_model(Model(cfg, device=dev, seed=0), one_rank_mesh,
+                              cfg, "tp")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))).to(
+        dev)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1))).to(
+        dev) for _ in range(4)]
+    logits, caches = [], []
+    for model in (plain, sharded):
+        _, cache = model.prefill({"tokens": tokens}, 100)
+        ops.reset_launches()
+        out = []
+        for tok in steps:
+            step, cache = model.decode_step(cache, tok)
+            out.append(_full(step))
+        assert ops.MAMBA_STEP_LAUNCHES == cfg.num_layers * len(steps)
+        logits.append(torch.stack(out))
+        caches.append({k: _full(cache[k]) for k in ("ssm", "conv_x",
+                                                    "conv_bc")})
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-6, atol=1e-6)
+    for k, want in caches[0].items():
+        torch.testing.assert_close(caches[1][k], want, rtol=1e-6, atol=1e-6)
 
 
 def test_custom_ops_fake_implementations_on_cuda_launch_nothing(dev):

@@ -28,7 +28,13 @@ with ``num_kv_heads=1`` (each rank's half of the cache sharded along W,
 partials merged across the ranks), and four ranks, mesh (2, 2), the
 latter beside a batch split: each layer's decode reaches the launch once
 a rank and step, and ten decode steps' logits stay within 1e-5 of the
-unsharded port's plain decode.
+unsharded port's plain decode.  The Mamba step's card route on a stand-in
+launch (the plain step written into the kernel's outputs): reduced
+mamba2-370m (its Mamba leaves drawn), mesh (1, 2) ``tp`` (each rank's
+half of the heads) and (2, 2) (and its half of the rows): each layer's
+step launches once a rank and step on its shard, and ten decode steps'
+logits and the caches after them stay within 1e-5 of the unsharded
+port's plain step.
 """
 import json
 import os
@@ -141,3 +147,27 @@ def test_decodes_card_route_on_shards_equals_the_unsharded_port(results,
     assert (qh, ck, partial) == ((4, 1, True) if seq else (2, 2, False))
     assert qb == cb == (1 if name.endswith("2x2") else 2)
     assert got["decode_logits"] <= SERVE_TOL
+
+
+@pytest.mark.parametrize("name", ["tp_mamba2_step_route",
+                                  "tp_mamba2_step_route_2x2"])
+def test_mamba_steps_card_route_on_shards_equals_the_unsharded_port(
+        results, name):
+    got = case(results, name)
+    assert got["launches"] == got["num_layers"] * got["steps"]
+    # the stacked (L, B, nh, hd, N) state over the rows on "data" (one
+    # rank, or two at 2 x 2) and the heads on "model"; x's window alike;
+    # B||C's over the rows alone
+    rows = name.endswith("2x2")
+    assert got["cache_placements"]["ssm"] == "(Shard(dim=1), Shard(dim=2))"
+    assert got["cache_placements"]["conv_x"] == \
+        "(Shard(dim=1), Shard(dim=2))"
+    assert got["cache_placements"]["conv_bc"] == \
+        "(Shard(dim=1), Replicate())"
+    b, nh, d, bc = (1 if rows else 2), got["nh"] // 2, \
+        got["d_inner"] // 2, got["d_bc"]
+    hd = got["d_inner"] // got["nh"]
+    assert got["local"] == [[b, nh, hd, got["local"][0][3]], [b, d, 3],
+                            [b, bc, 3]]
+    assert got["decode_logits"] <= SERVE_TOL
+    assert max(got["caches"].values()) <= SERVE_TOL, got["caches"]

@@ -6,8 +6,9 @@
 starts two ranks (``torch.multiprocessing.spawn``, gloo on a free
 localhost port) and runs the two-rank cases, then four ranks for the
 (2, 2) cases, then one rank for the one-rank case, then two ranks for
-the MLA card route's and the decode card route's cases (the decode's
-2 x 2 case runs with the four ranks); rank 0 writes each
+the MLA card route's, the decode card route's and the Mamba step card
+route's cases (their 2 x 2 cases run with the four ranks); rank 0 writes
+each
 case's numbers to OUT.json.  Every sharded model is held to the
 unsharded port from the same seed.
 """
@@ -47,6 +48,10 @@ DECODE_ROUTE = [("tp_qwen_decode_route", ("qwen1.5-0.5b", (1, 2), 0)),
                 ("tp_stablelm_kv1_decode_route", ("stablelm-12b", (1, 2), 1))]
 DECODE_ROUTE_2X2 = [("tp_stablelm_kv1_decode_route_2x2",
                      ("stablelm-12b", (2, 2), 1))]
+# the Mamba step's card route on a stand-in launch: (name, (data, model));
+# the state split over the heads, then over the rows beside the heads
+MAMBA_ROUTE = [("tp_mamba2_step_route", ((1, 2),))]
+MAMBA_ROUTE_2X2 = [("tp_mamba2_step_route_2x2", ((2, 2),))]
 
 
 def _port():
@@ -247,6 +252,68 @@ def decode_card_route_case(arch, mesh_shape, kv):
             "local": log[0], "partial_calls": sum(c[2] for c in log)}
 
 
+def mamba_card_route_case(mesh_shape):
+    """Reduced mamba2-370m, every Mamba leaf drawn, sharded (tp) with the
+    Mamba step's card route taken on the CPU (``kernel_stand_in.mamba_step``
+    on each rank's local shard): each layer's step launches once a rank
+    and step on its shard of the state and writes the sharded caches in
+    place.  Ten decode steps' logits and the caches after them held to the
+    unsharded port's plain step."""
+    import kernel_stand_in
+    import pytest
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.models import ssm
+    from repro_torch.models.model import Model
+    get_arch, shd, make_host_mesh = _port()
+    cfg = get_arch("mamba2-370m").reduced()
+    mesh = make_host_mesh(model=mesh_shape[1], data=mesh_shape[0],
+                          device_type="cpu")
+    ref = Model(cfg, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(2)
+    d_inner, nh, d_bc = ssm.dims(cfg)
+    with torch.no_grad():
+        for blk in ref.blocks:
+            p = blk["mamba"]
+            p["A_log"].uniform_(0.0, 2.7, generator=gen)
+            p["dt_bias"].uniform_(-4.0, 2.0, generator=gen)
+            for k in ("D", "conv_x_b", "conv_bc_b"):
+                p[k].normal_(0.0, 0.5, generator=gen)
+    model = Model(cfg, device="cpu", seed=0)
+    model.load_state_dict(ref.state_dict())
+    model = shd.shard_model(model, mesh, cfg, "tp")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    steps = [torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+             for _ in range(DECODE_STEPS)]
+    _, ref_cache = ref.prefill({"tokens": tokens}, 100)
+    want = []
+    for tok in steps:
+        logits, ref_cache = ref.decode_step(ref_cache, tok)
+        want.append(logits)
+    _, cache = model.prefill({"tokens": tokens}, 100)
+    log = []
+
+    def kernel(*args):
+        log.append([list(args[3].shape), list(args[4].shape),
+                    list(args[5].shape)])
+        kernel_stand_in.mamba_step(*args)
+    ops.reset_launches()
+    with pytest.MonkeyPatch.context() as patch:
+        kernel_stand_in.install(patch, mamba_step=kernel)
+        step = 0.0
+        for tok, w in zip(steps, want):
+            got, cache = model.decode_step(cache, tok)
+            step = max(step, _diff(got, w))
+        launches = ops.MAMBA_STEP_LAUNCHES
+    return {"decode_logits": step, "launches": launches,
+            "num_layers": cfg.num_layers, "steps": DECODE_STEPS,
+            "nh": nh, "d_inner": d_inner, "d_bc": d_bc,
+            "caches": {k: _diff(cache[k], ref_cache[k])
+                       for k in ("ssm", "conv_x", "conv_bc")},
+            "cache_placements": {k: str(cache[k].placements)
+                                 for k in ("ssm", "conv_x", "conv_bc")},
+            "local": log[0]}
+
+
 def host_mesh_case():
     """The counterpart of the reference's test_pjit_forward_on_host_mesh:
     the reduced qwen's forward at mesh (1, 1), embed vocab-sharded."""
@@ -306,12 +373,16 @@ def main(out: str) -> int:
     results = _spawn(2, _cases(SERVE, TRAIN), out)
     results.update(_spawn(4, _cases(SERVE_2X2, TRAIN_2X2)
                           + [(name, decode_card_route_case, args)
-                             for name, args in DECODE_ROUTE_2X2], out))
+                             for name, args in DECODE_ROUTE_2X2]
+                          + [(name, mamba_card_route_case, args)
+                             for name, args in MAMBA_ROUTE_2X2], out))
     results.update(_spawn(1, [("host_mesh", host_mesh_case, ())], out))
     results.update(_spawn(2, [("tp_dsv2_mla_route", mla_card_route_case,
                                ((1, 2),))]
                           + [(name, decode_card_route_case, args)
-                             for name, args in DECODE_ROUTE], out))
+                             for name, args in DECODE_ROUTE]
+                          + [(name, mamba_card_route_case, args)
+                             for name, args in MAMBA_ROUTE], out))
     Path(out).write_text(json.dumps(results))
     return 0
 
